@@ -1,0 +1,220 @@
+"""Levenberg-Marquardt trust-region loop.
+
+Port of ``slam_tpu/solver/lm.py``.  The JAX ``while_loop``/``scan`` become
+Python loops over device tensors: the state stays on the device, and
+:func:`lm_solve` reads one flag per iteration (``converged``) on the host.
+Damping is Marquardt-scaled with the Nielsen update; ``lm_fixed_iters``
+also carries the opt-in stock-Ceres bookkeeping (``trust_region="ceres"``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from slam_tpu.config import SolverConfig
+from slam_tpu_torch.solver import linear
+from slam_tpu_torch.solver.linearize import cost_only, linearize
+from slam_tpu_torch.solver.models import SE2Model
+from slam_tpu_torch.solver.problem import EdgeSet, FreeMask
+
+Tensor = torch.Tensor
+
+
+class LMState(NamedTuple):
+    poses: Tensor     # (N, 3)
+    switches: Tensor  # (E,)
+    cost: Tensor      # scalar current cost
+    lam: Tensor       # LM damping
+    nu: Tensor        # rejection growth factor
+    it: int           # iterations executed
+    accepted: Tensor  # accepted steps (int64 scalar)
+    converged: Tensor  # bool scalar
+    lin_iters: int    # cumulative inner iterations (0 for direct solvers)
+
+
+class LMResult(NamedTuple):
+    poses: Tensor
+    switches: Tensor
+    cost: Tensor
+    initial_cost: Tensor
+    iterations: int
+    accepted: Tensor
+    converged: Tensor
+    lin_iters: int
+    final_lambda: Tensor | None = None
+    final_nu: Tensor | None = None
+
+
+def _gnc_phi(cfg: SolverConfig, it: int) -> float:
+    """Annealed DCS phi at iteration ``it``: ``phi * scale^(1 - min(it,K)/K)``
+    (the plain phi when GNC is off)."""
+    K = cfg.gnc_anneal_iters
+    if not K or cfg.robust != "dcs":
+        return cfg.dcs_phi
+    frac = min(it / K, 1.0)
+    return cfg.dcs_phi * cfg.gnc_init_scale ** (1.0 - frac)
+
+
+def linear_plan(cfg: SolverConfig, edges: EdgeSet, partition=None):
+    """What the configured linear solver needs besides the system: the
+    Schur partition, or the dense assembly plan (built when not given)."""
+    if cfg.robust == "sc":
+        raise NotImplementedError(
+            "joint switch unknowns (method 2) are not ported yet "
+            "(ROADMAP A9)")
+    if cfg.linear_solver == "dense":
+        return partition if partition is not None \
+            else linear.dense_plan(edges)
+    if cfg.linear_solver == "schur":
+        if partition is None:
+            raise ValueError("linear_solver='schur' requires a partition")
+        return partition
+    raise NotImplementedError(
+        f"linear solver {cfg.linear_solver!r} is not ported yet "
+        "(ROADMAP A13/A16)")
+
+
+def _solve_linear(system, edges, lam, cfg: SolverConfig, plan):
+    if cfg.linear_solver == "dense":
+        return linear.dense_solve(system, edges, lam, plan)
+    from slam_tpu_torch.solver import schur
+
+    return schur.schur_solve(system, edges, plan, lam)
+
+
+def _cost_kw(cfg: SolverConfig, model) -> dict:
+    return dict(model=model, robust=cfg.robust, dcs_phi=cfg.dcs_phi,
+                huber_delta=cfg.huber_delta,
+                sc_prior_lambda=cfg.sc_prior_lambda)
+
+
+def _propose(s: LMState, edges, free, cfg, model, plan, kw, gnc):
+    """One linearise-solve-retract step from ``s``: returns the candidate
+    and the model's predicted reduction."""
+    kw_t = dict(kw, dcs_phi=_gnc_phi(cfg, s.it))
+    system = linearize(s.poses, s.switches, edges, free, **kw_t)
+    # Under GNC the objective changes each iteration; compare at the
+    # current phi (system.cost is the objective at s.poses and phi_t).
+    prev_cost = system.cost if gnc else s.cost
+    dx = _solve_linear(system, edges, s.lam, cfg, plan)
+    new_poses = model.retract(s.poses, dx.poses)
+    new_switches = s.switches + dx.switches
+    new_cost = cost_only(new_poses, new_switches, edges, **kw_t)
+    d = torch.diagonal(system.Hdiag, dim1=-2, dim2=-1)
+    damp = s.lam * torch.clamp(d, linear._DIAG_MIN, linear._DIAG_MAX)
+    ds = s.lam * torch.clamp(system.Hss, linear._DIAG_MIN, linear._DIAG_MAX)
+    model_red = 0.5 * (
+        torch.sum(dx.poses * (damp * dx.poses - system.g))
+        + torch.sum(dx.switches * (ds * dx.switches - system.gs)))
+    return new_poses, new_switches, new_cost, prev_cost, model_red
+
+
+def _init_state(poses0, switches0, cost0, cfg, lam0=None, nu0=None,
+                it0=None) -> LMState:
+    kw = dict(dtype=poses0.dtype, device=poses0.device)
+    return LMState(
+        poses=poses0, switches=switches0, cost=cost0,
+        lam=torch.as_tensor(cfg.init_lambda if lam0 is None else lam0, **kw),
+        nu=torch.as_tensor(2.0 if nu0 is None else nu0, **kw),
+        it=0 if it0 is None else int(it0),
+        accepted=torch.zeros((), dtype=torch.int64, device=poses0.device),
+        converged=torch.zeros((), dtype=torch.bool, device=poses0.device),
+        lin_iters=0,
+    )
+
+
+def _result(s: LMState, cost0: Tensor) -> LMResult:
+    return LMResult(poses=s.poses, switches=s.switches, cost=s.cost,
+                    initial_cost=cost0, iterations=s.it, accepted=s.accepted,
+                    converged=s.converged, lin_iters=s.lin_iters,
+                    final_lambda=s.lam, final_nu=s.nu)
+
+
+def _cast(poses0, switches0, cfg):
+    dtype = getattr(torch, cfg.dtype)
+    return poses0.to(dtype), switches0.to(dtype)
+
+
+def lm_solve(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
+             free: FreeMask, cfg: SolverConfig, model=None,
+             partition=None) -> LMResult:
+    """Run LM to convergence (or ``cfg.max_iterations``)."""
+    model = model or SE2Model
+    poses0, switches0 = _cast(poses0, switches0, cfg)
+    kw = _cost_kw(cfg, model)
+    plan = linear_plan(cfg, edges, partition)
+    gnc = bool(cfg.gnc_anneal_iters) and cfg.robust == "dcs"
+    cost0 = cost_only(poses0, switches0, edges, **kw)
+    s = _init_state(poses0, switches0, cost0, cfg)
+    while s.it < cfg.max_iterations:
+        new_poses, new_switches, new_cost, prev_cost, model_red = _propose(
+            s, edges, free, cfg, model, plan, kw, gnc)
+        rho = (prev_cost - new_cost) / torch.clamp(model_red, min=1e-30)
+        accept = new_cost < prev_cost
+        factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+        lam_acc = torch.clamp(s.lam * factor, cfg.min_lambda, cfg.max_lambda)
+        lam_rej = torch.clamp(s.lam * s.nu, cfg.min_lambda, cfg.max_lambda)
+        rel_decrease = (prev_cost - new_cost) / torch.clamp(prev_cost,
+                                                            min=1e-30)
+        converged = accept & (rel_decrease < cfg.function_tolerance)
+        if gnc:  # no convergence while phi is still annealing
+            converged = converged & (s.it >= cfg.gnc_anneal_iters)
+        s = LMState(
+            poses=torch.where(accept, new_poses, s.poses),
+            switches=torch.where(accept, new_switches, s.switches),
+            cost=torch.where(accept, new_cost, prev_cost),
+            lam=torch.where(accept, lam_acc, lam_rej),
+            nu=torch.where(accept, torch.full_like(s.nu, 2.0), s.nu * 2.0),
+            it=s.it + 1,
+            accepted=s.accepted + accept.to(torch.int64),
+            converged=converged,
+            lin_iters=s.lin_iters,
+        )
+        if bool(converged.item()):
+            break
+    return _result(s, cost0)
+
+
+def lm_fixed_iters(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
+                   free: FreeMask, cfg: SolverConfig, num_iters: int,
+                   model=None, partition=None, lam0=None, it0=None,
+                   nu0=None) -> LMResult:
+    """Exactly ``num_iters`` LM iterations, no host sync inside.
+    ``lam0``/``nu0``/``it0`` continue from a previous result."""
+    model = model or SE2Model
+    poses0, switches0 = _cast(poses0, switches0, cfg)
+    kw = _cost_kw(cfg, model)
+    plan = linear_plan(cfg, edges, partition)
+    gnc = bool(cfg.gnc_anneal_iters) and cfg.robust == "dcs"
+    ceres = getattr(cfg, "trust_region", "nielsen") == "ceres"
+    cost0 = cost_only(poses0, switches0, edges, **kw)
+    s = _init_state(poses0, switches0, cost0, cfg, lam0, nu0, it0)
+    for _ in range(num_iters):
+        new_poses, new_switches, new_cost, prev_cost, model_red = _propose(
+            s, edges, free, cfg, model, plan, kw, gnc)
+        lam_rej = torch.clamp(s.lam * s.nu, max=cfg.max_lambda)
+        if ceres:
+            # Stock-Ceres acceptance and accepted-radius update (see the
+            # JAX package for why only these two differ).
+            rho = (prev_cost - new_cost) / torch.clamp(model_red, min=1e-30)
+            accept = (model_red > 0.0) & (rho > 1e-3)
+            factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+            lam_acc = torch.clamp(s.lam * factor, cfg.min_lambda,
+                                  cfg.max_lambda)
+        else:
+            accept = new_cost < prev_cost
+            lam_acc = torch.clamp(s.lam / 3.0, min=cfg.min_lambda)
+        s = LMState(
+            poses=torch.where(accept, new_poses, s.poses),
+            switches=torch.where(accept, new_switches, s.switches),
+            cost=torch.where(accept, new_cost, prev_cost),
+            lam=torch.where(accept, lam_acc, lam_rej),
+            nu=torch.where(accept, torch.full_like(s.nu, 2.0), s.nu * 2.0),
+            it=s.it + 1,
+            accepted=s.accepted + accept.to(torch.int64),
+            converged=s.converged,
+            lin_iters=s.lin_iters,
+        )
+    return _result(s, cost0)

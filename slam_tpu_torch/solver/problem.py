@@ -1,0 +1,135 @@
+"""Static-topology edge tensors.
+
+Port of ``slam_tpu/solver/problem.py``.  An :class:`EdgeSet` holds index
+tensors only -- no one-hot incidence operators, no chain head (both were
+TPU workarounds) -- plus the precomputed CSR scatter plans of both
+endpoints.  Every edge/node gather goes through the ``gather_rows`` kernel
+and every node sum through ``scatter_add_rows``.  ``active`` is the
+per-edge weight that pads, masks and windows without new plans:
+``edges._replace(active=mask)`` keeps them.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from slam_tpu.graph import ODOMETRY_EDGE, PoseGraph
+from slam_tpu_torch.ops.gather import (
+    SegmentPlan,
+    gather_rows,
+    scatter_add_rows,
+    segment_plan,
+)
+
+Tensor = torch.Tensor
+
+
+class EdgeSet(NamedTuple):
+    ij: Tensor          # (E, 2) int32 endpoints
+    meas: Tensor        # (E, 3) measured relative pose
+    is_loop: Tensor     # (E,) bool: closure or bogus (robustified edges)
+    active: Tensor      # (E,) float: 1 live, 0 padded/masked out
+    info: Tensor        # (E, 6) information entries
+    plan_a: SegmentPlan  # endpoint a: gather index + scatter plan
+    plan_b: SegmentPlan  # endpoint b
+
+    @property
+    def num_edges(self) -> int:
+        return self.ij.shape[0]
+
+    @property
+    def num_nodes(self) -> int:
+        return self.plan_a.n
+
+    def gather_a(self, x: Tensor) -> Tensor:
+        """``x[a]`` through the ``gather_rows`` kernel."""
+        return gather_rows(x, self.plan_a.idx)
+
+    def gather_b(self, x: Tensor) -> Tensor:
+        return gather_rows(x, self.plan_b.idx)
+
+    def scatter_a(self, v: Tensor, n: int) -> Tensor:
+        """``segment_sum(v, a, n)`` through the ``scatter_add_rows`` kernel."""
+        _check_n(self.plan_a, n)
+        return scatter_add_rows(v, self.plan_a)
+
+    def scatter_b(self, v: Tensor, n: int) -> Tensor:
+        _check_n(self.plan_b, n)
+        return scatter_add_rows(v, self.plan_b)
+
+
+def _check_n(plan: SegmentPlan, n: int) -> None:
+    if n != plan.n:
+        raise ValueError(f"EdgeSet plans cover {plan.n} nodes, asked for {n}")
+
+
+class FreeMask(NamedTuple):
+    """Gauge handling: per-node 1.0 = free, 0.0 = held constant."""
+
+    node: Tensor  # (N,) float
+
+
+def edge_set_from_arrays(ij, meas, is_loop, active, info, num_nodes: int,
+                         dtype=torch.float64, device="cpu") -> EdgeSet:
+    """Build an :class:`EdgeSet` (and its scatter plans) from host arrays."""
+    ij = np.asarray(ij, np.int64)
+    if ij.size and (ij.min() < 0 or ij.max() >= num_nodes):
+        raise ValueError("edge endpoints out of range")
+
+    def f(a):  # copies, so read-only inputs are safe
+        return torch.tensor(np.asarray(a, np.float64), dtype=dtype,
+                            device=device)
+
+    return EdgeSet(
+        ij=torch.as_tensor(ij.astype(np.int32), device=device),
+        meas=f(meas),
+        is_loop=torch.tensor(np.asarray(is_loop, bool), device=device),
+        active=f(active),
+        info=f(info),
+        plan_a=segment_plan(ij[:, 0], num_nodes, device=device),
+        plan_b=segment_plan(ij[:, 1], num_nodes, device=device),
+    )
+
+
+def edge_set_from_graph(graph: PoseGraph, dtype=torch.float64, device="cpu",
+                        pad_to: int | None = None) -> EdgeSet:
+    """EdgeSet in canonical edge order; ``pad_to`` appends inactive (0, 0)
+    edges so the edge count is a bucket size."""
+    if graph.dim != 3:
+        raise NotImplementedError(
+            "SE(3) graphs are not ported yet (ROADMAP A12)")
+    g = graph.canonical_order()
+    e = g.num_edges
+    pad = 0 if pad_to is None else max(0, pad_to - e)
+    return edge_set_from_arrays(
+        ij=np.concatenate([g.edges_ij, np.zeros((pad, 2), np.int32)]),
+        meas=np.concatenate([g.edges_meas, np.zeros((pad, 3))]),
+        is_loop=np.concatenate([g.edge_type != ODOMETRY_EDGE,
+                                np.zeros(pad, bool)]),
+        active=np.concatenate([np.ones(e), np.zeros(pad)]),
+        info=np.concatenate([g.edges_info, np.zeros((pad, 6))]),
+        num_nodes=g.num_nodes, dtype=dtype, device=device,
+    )
+
+
+def anchor_first_node(n: int, dtype=torch.float64, device="cpu") -> FreeMask:
+    """Free mask fixing node 0 (the reference's gauge)."""
+    m = torch.ones((n,), dtype=dtype, device=device)
+    m[0] = 0.0
+    return FreeMask(node=m)
+
+
+def anchor_node(n: int, anchor, dtype=torch.float64, device="cpu") -> FreeMask:
+    """Free mask fixing node ``anchor`` (an int or a 0-d tensor)."""
+    idx = torch.arange(n, device=device)
+    return FreeMask(node=(idx != anchor).to(dtype))
+
+
+def window_mask(edges: EdgeSet, lo, hi) -> Tensor:
+    """Edges whose endpoints both lie in the index window [lo, hi]."""
+    a, b = edges.ij[:, 0], edges.ij[:, 1]
+    inside = (a >= lo) & (a <= hi) & (b >= lo) & (b <= hi)
+    return inside.to(edges.active.dtype)
