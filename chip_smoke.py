@@ -10,11 +10,13 @@ the script exits non-zero and prints no result line):
    build of every kernel in ``slam_tpu_torch/csrc`` (one nvcc per source,
    all started together);
 2. each kernel against its plain PyTorch version on the card, in float32
-   and float64, with CUDA-event times of the kernel, the plain version and
-   the library call that computes the same function, and the kernel's
-   bound on this card:
-   - gather, scatter and linearisation at the main path's shapes
-     (INTEL+50 and M10000+50, real poses and edges);
+   and float64:
+   - every gather and scatter launch of one LM iteration of INTEL+50 and
+     M10000+50 (real poses and edges), recorded and replayed: each
+     gather bitwise equal to ``index_select``; each grouped scatter
+     launch bitwise equal to itself run again and to its groups launched
+     one at a time, and within TOL of its plain version;
+   - the linearisation at the same shapes;
    - ``micro_chol_inv`` on SPD batches of (16, 128, 128) and
      (32, 128, 128), and on real panels: the first and the trailing
      diagonal panel of the equilibrated Schur interiors of INTEL+50 and
@@ -25,7 +27,8 @@ the script exits non-zero and prints no result line):
    trajectory;
 4. plain DCS on INTEL+50 (no rescue), 50 ``lm_fixed_iters`` iterations,
    held against the float64 JAX reference cost in
-   ``slam_tpu_torch/data/reference_costs.json``;
+   ``slam_tpu_torch/data/reference_costs.json``, with its launches per
+   iteration;
 5. scale: M10000+50, dataset init, auto partition, 50 ``lm_fixed_iters``
    iterations in one call: cost <= 0.8 x initial, and LM iterations/s;
 6. the blocked Schur path (``schur_blocked``, panel 128,
@@ -34,7 +37,17 @@ the script exits non-zero and prints no result line):
    against the float64 reference under the blocked path's gate; (c)
    M10000+50, cost <= 0.8 x initial; (d) LM iterations/s of (b) and (c)
    under the native, blocked-plain-panel and blocked-kernel
-   configurations, in turns.
+   configurations, in turns; native INTEL within ``LAUNCH_LIMITS``;
+7. the kernels' times, after the end-to-end phases and with every
+   profiler session last, since one leaves the later host-bound calls of
+   its process slower (``[kernels]`` lines, float32; and
+   ``micro_chol_inv`` in float64): per launch and per plan of the
+   recorded iterations, and on the SPD batches, the kernel (``ms``: CUDA
+   events around 50 back-to-back calls; ``device_ms``: its device events
+   under torch.profiler; ``host_us``: host time per call with no sync),
+   the plain version, the library call that computes the same function,
+   and the kernel's bound on this card
+   (``slam_tpu_torch/tools/kernel_times.py``).
 
 Each phase that drives a path names the kernels the path must launch; the
 launch counts are set to 0 just before the path and read just after.
@@ -44,9 +57,9 @@ and as the last line ``{"ok": true, "device": {...}}``.  Imports no JAX.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -93,14 +106,10 @@ PHASE_KERNELS = {
     "blocked_path": ("gather_rows", "scatter_add_rows",
                      "fused_linearize_se2", "micro_chol_inv"),
 }
-# Published peaks (dense, no sparsity; float32/float64 outside the tensor
-# cores): memory bytes/s and operations/s by type.
-PEAKS = {
-    "H100 PCIe": (2.0e12, {torch.float32: 51e12, torch.float64: 26e12}),
-    "H100 NVL": (3.9e12, {torch.float32: 60e12, torch.float64: 30e12}),
-    "H200": (4.8e12, {torch.float32: 67e12, torch.float64: 34e12}),
-    "H100": (3.35e12, {torch.float32: 67e12, torch.float64: 34e12}),
-}
+# Launches per LM iteration of native INTEL plain DCS (phase 6d): one
+# gather per source and one scatter per group of sums.
+LAUNCH_LIMITS = {"gather_rows": 6, "scatter_add_rows": 4}
+REPS = 50                 # calls per timing
 # Operations per edge of the linearisation kernel: about 200 flops and 9
 # transcendentals (slam_tpu_torch/csrc/linearize_se2.cu).
 LINEARIZE_OPS_PER_EDGE = 209
@@ -111,47 +120,11 @@ def log(phase: str, **fields) -> None:
           flush=True)
 
 
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip()
-
-
-def card_peaks() -> tuple[float, dict]:
-    name = torch.cuda.get_device_name(0)
-    for key, peaks in PEAKS.items():
-        if key in name:
-            return peaks
-    raise RuntimeError(f"no published peaks for {name!r}")
-
-
-def bound(peaks, dtype, nbytes: float, ops: float) -> tuple[float, str]:
-    """(least ms, "bytes" or "operations") for this work on this card."""
-    t_bytes = nbytes / peaks[0] * 1e3
-    t_ops = ops / peaks[1][dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def cuda_ms(fn, reps: int = 50) -> float:
-    """Mean milliseconds per call, CUDA events around ``reps`` calls."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def in_turns(fns: dict, reps: dict) -> dict:
     """CUDA-event ms of each function, timed in the order a, b, .., b, a
     and averaged over both turns."""
+    from slam_tpu_torch.tools.kernel_times import cuda_ms
+
     order = list(fns) + list(fns)[::-1]
     times = {k: [] for k in fns}
     for k in order:
@@ -255,15 +228,148 @@ def check_chol(label: str, A, dtype_name: str, gate: str) -> float:
     return max(eL, ei)
 
 
-def phase_kernels(device, peaks) -> dict:
-    """Kernel vs plain at the main path's shapes; returns the float32
-    numbers per kernel for the result line (INTEL shapes; the SPD batch of
-    16 panels for ``micro_chol_inv``)."""
+def check_launches(calls, label: str, name: str) -> float:
+    """Every gather and scatter launch of a recorded LM iteration, again on
+    its own inputs: a gather bitwise equal to ``index_select``; a scatter
+    launch bitwise equal to itself run again and to each of its groups
+    launched alone, and within TOL of its plain version.  Returns the
+    largest scatter error."""
+    from slam_tpu_torch.ops.gather import gather_rows, scatter_add_groups, \
+        scatter_add_groups_plain, scatter_add_rows
+
+    worst = 0.0
+    for fname, args, _ in calls:
+        if fname == "gather_rows":
+            x, idx = args
+            got = gather_rows(x, idx)
+            torch.cuda.synchronize()
+            if not torch.equal(got, x.index_select(0, idx.long())):
+                raise AssertionError(f"gather_rows {label} {name}: not "
+                                     "bitwise equal to index_select")
+        elif fname in ("scatter_add_rows", "scatter_add_groups"):
+            groups = args[0] if fname == "scatter_add_groups" else (args,)
+            first = scatter_add_groups(groups)
+            again = scatter_add_groups(groups)
+            alone = [scatter_add_rows(v, plan) for v, plan in groups]
+            torch.cuda.synchronize()
+            plain = scatter_add_groups_plain(groups)
+            for k, (a, b, c, d) in enumerate(zip(first, again, alone, plain)):
+                what = f"scatter_add_rows {label} {name} group {k}"
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{what}: two runs differ")
+                if not torch.equal(a, c):
+                    raise AssertionError(f"{what}: differs from the group "
+                                         "launched alone")
+                err, scale = max_err(a, d)
+                if not err <= TOL[a.dtype] * scale:
+                    raise AssertionError(f"{what}: err {err} > {TOL[a.dtype]}"
+                                         f" x {scale}")
+                worst = max(worst, err)
+    return worst
+
+
+def summary_row(rows: list, prefix: str) -> dict:
+    """The timing row of the call labelled ``prefix``."""
+    for row in rows:
+        if row["call"].startswith(prefix):
+            return row
+    raise AssertionError(f"no timed call {prefix!r}")
+
+
+def time_launches(label: str, calls, names, peaks, plain, summary):
+    """The float32 timings of a recorded iteration's kernel calls; with
+    ``plain`` (INTEL), the result line's numbers of the gather, the scatter
+    and the linearisation.  Returns ``(rows, fns, report)`` for
+    :func:`phase_kernel_times`."""
+    from slam_tpu_torch.tools import kernel_times as kt
+
+    rows, fns = kt.measure_calls(calls, names, peaks, REPS)
+    plain = plain or {}
+    plain_ms = {k: kt.cuda_ms(fp, REPS) for k, (_, fp, _, _) in plain.items()}
+
+    def report():
+        for row in rows:
+            print("[kernels] " + json.dumps(
+                {"shape": label, "dtype": "float32", **row}), flush=True)
+        for kname, (err, _, prefix, b) in plain.items():
+            row = summary_row(rows, prefix)
+            b_ms, b_by = b or (row["bound_ms"], row["bound_by"])
+            summary[kname] = dict(
+                max_abs_err=err, ms=row["ms"], device_ms=row["device_ms"],
+                host_us=row["host_us"], plain_ms=plain_ms[kname],
+                bound_ms=b_ms, bound_by=b_by, library_ms=row["library_ms"])
+
+    return rows, fns, report
+
+
+def time_chol(A, err: float, peaks, summary):
+    """Times of ``micro_chol_inv`` on one SPD batch against its plain
+    version and the library pair; with ``summary``, the result line's.
+    Returns ``(rows, fns, report)`` for :func:`phase_kernel_times`."""
     from slam_tpu_torch.ops.chol import micro_chol_inv, micro_chol_inv_plain
+    from slam_tpu_torch.tools import kernel_times as kt
+
+    m = A.shape[0]
+    eye = torch.eye(PANEL, dtype=A.dtype, device=A.device).expand(m, -1, -1)
+
+    def library():
+        L, _ = torch.linalg.cholesky_ex(A)
+        return torch.linalg.solve_triangular(L, eye, upper=False)
+
+    t = in_turns({"kernel": lambda: micro_chol_inv(A),
+                  "plain": lambda: micro_chol_inv_plain(A),
+                  "library": library},
+                 {"kernel": REPS, "plain": 3, "library": REPS})
+    # The lower triangle of A read, L and inv written.
+    b_ms, b_by = kt.bound(
+        peaks, A.dtype,
+        m * (PANEL * (PANEL + 1) // 2 + 2 * PANEL ** 2) * A.element_size(),
+        m * 2 * PANEL ** 3 / 3)
+    row = dict(max_abs_err=err, ms=t["kernel"],
+               host_us=kt.host_us(lambda: micro_chol_inv(A), REPS),
+               plain_ms=t["plain"], bound_ms=b_ms, bound_by=b_by,
+               library_ms=t["library"])
+
+    def report():
+        log("kernels", kernel="micro_chol_inv", shape=f"spd{m}",
+            dtype=str(A.dtype).replace("torch.", ""), max_abs_err=err,
+            ms=round(row["ms"], 5), device_ms=round(row["device_ms"], 5),
+            host_us=round(row["host_us"], 2),
+            plain_ms=round(row["plain_ms"], 5),
+            library_ms=round(row["library_ms"], 5), bound_ms=round(b_ms, 6),
+            bound_by=b_by)
+        if summary is not None:
+            summary["micro_chol_inv"] = {
+                k: v for k, v in row.items() if k != "device_events"}
+
+    return [row], [lambda: micro_chol_inv(A)], report
+
+
+def phase_kernel_times(timings: list) -> None:
+    """Phase 7: the host-sensitive times of every job first, then all the
+    device times under torch.profiler (a profiler session leaves the
+    later host-bound calls of its process slower), then the lines."""
+    from slam_tpu_torch.tools import kernel_times as kt
+
+    done = [job() for job in timings]
+    for rows, fns, _ in done:
+        kt.add_device_times(rows, fns, REPS)
+    for _, _, report in done:
+        report()
+
+
+def phase_kernels(device, peaks, timings: list) -> dict:
+    """Kernel vs plain at the main path's shapes.  The kernels' timings are
+    appended to ``timings`` to run after the end-to-end phases, so no
+    profiler session runs before the LM rates that other trees are
+    compared on.  Returns the dict those timings fill with the float32
+    numbers per kernel for the result line (INTEL shapes; the SPD batch
+    of 16 panels for ``micro_chol_inv``)."""
     from slam_tpu_torch.ops.gather import gather_rows, gather_rows_plain, \
-        scatter_add_rows, scatter_add_rows_plain
+        scatter_add_rows_plain
     from slam_tpu_torch.ops.linearize import fused_linearize_se2, \
         fused_linearize_se2_plain
+    from slam_tpu_torch.tools import kernel_times as kt
     from slam_tpu_torch.tools.problems import intel50, m10000
 
     summary = {}
@@ -271,33 +377,30 @@ def phase_kernels(device, peaks) -> dict:
         name = str(dtype).replace("torch.", "")
         prob = intel50(device, name)
         m = m10000(device, dtype)
-        shapes = {"INTEL": (prob.edges, prob.free, prob.poses0,
-                            prob.partition),
-                  "M10000": (m.args[2], m.args[3], m.args[0], m.partition)}
-        for label, (edges, free, poses, part) in shapes.items():
-            idx = edges.plan_a.idx
-            idx64 = idx.long()
-            pa = gather_rows_plain(poses, edges.plan_a.idx)
-            pb = gather_rows_plain(poses, edges.plan_b.idx)
-            lin_args = (pa, pb, edges.meas,
-                        gather_rows_plain(free.node, edges.plan_a.idx),
-                        gather_rows_plain(free.node, edges.plan_b.idx),
-                        edges.is_loop.to(dtype), edges.active, 0.5, 0.01)
+        shapes = {"INTEL": ((prob.poses0, prob.switches0, prob.edges,
+                             prob.free), prob.scfg, prob.partition),
+                  "M10000": (m.args, m.cfg, m.partition)}
+        for label, (args, cfg, part) in shapes.items():
+            poses, _, edges, free = args
             E, N = edges.num_edges, poses.shape[0]
-            results = {}
-
-            g_k = gather_rows(poses, idx)
+            calls, counts, names = kt.record_iteration(args, cfg, part)
+            both = gather_rows(poses, edges.ab)
+            alone = (gather_rows(poses, edges.plan_a.idx),
+                     gather_rows(poses, edges.plan_b.idx))
             torch.cuda.synchronize()
-            g_p = gather_rows_plain(poses, idx)
-            if not torch.equal(g_k, g_p):
-                raise AssertionError(f"gather_rows {label} {name}: not "
-                                     "bitwise equal to the plain version")
-            results["gather_rows"] = (
-                0.0, lambda: gather_rows(poses, idx),
-                lambda: gather_rows_plain(poses, idx),
-                lambda: poses.index_select(0, idx64),
-                bound(peaks, dtype, nbytes(poses, idx, g_k), 0))
+            if not (torch.equal(both[:E], alone[0])
+                    and torch.equal(both[E:], alone[1])):
+                raise AssertionError(f"gather_rows {label} {name}: [a; b] "
+                                     "differs from a and b gathered alone")
+            scatter_err = check_launches(calls, label, name)
+            log("kernels", shape=label, dtype=name, edges=E, nodes=N,
+                checked_calls=len(calls), scatter_max_abs_err=scatter_err,
+                launches_per_run=json.dumps(counts))
 
+            pa, pb = gather_rows_plain(poses, edges.ab).split(E)
+            fa, fb = gather_rows_plain(free.node, edges.ab).split(E)
+            lin_args = (pa, pb, edges.meas, fa, fb, edges.is_loop.to(dtype),
+                        edges.active, 0.5, 0.01)
             for robust in ("dcs", "none"):
                 l_k = fused_linearize_se2(*lin_args, robust=robust)
                 torch.cuda.synchronize()
@@ -309,55 +412,33 @@ def phase_kernels(device, peaks) -> dict:
                     raise AssertionError(
                         f"fused_linearize_se2 {label} {name} {robust}: "
                         f"(err, scale) above {TOL[dtype]} x scale: {bad}")
-                err = max(e for e, _ in errs.values())
                 if robust == "dcs":
-                    results["fused_linearize_se2"] = (
-                        err,
-                        lambda: fused_linearize_se2(*lin_args,
-                                                    robust="dcs"),
-                        lambda: fused_linearize_se2_plain(*lin_args,
-                                                          robust="dcs"),
-                        None,
-                        bound(peaks, dtype,
-                              nbytes(*lin_args[:7], *l_k.values()),
-                              LINEARIZE_OPS_PER_EDGE * E))
+                    lin_err = max(e for e, _ in errs.values())
+                    lin_bound = kt.bound(
+                        peaks, dtype, nbytes(*lin_args[:7], *l_k.values()),
+                        LINEARIZE_OPS_PER_EDGE * E)
+                    Haa = l_p["Haa"]
 
-            v = l_p["Haa"].reshape(-1, 9).contiguous()
-            s_k = scatter_add_rows(v, edges.plan_a)
-            s_k2 = scatter_add_rows(v, edges.plan_a)
-            torch.cuda.synchronize()
-            s_p = scatter_add_rows_plain(v, edges.plan_a)
-            err, scale = max_err(s_k, s_p)
-            if not err <= TOL[dtype] * scale:
-                raise AssertionError(f"scatter_add_rows {label} {name}: "
-                                     f"err {err} > {TOL[dtype]} x {scale}")
-            if not torch.equal(s_k, s_k2):
-                raise AssertionError(f"scatter_add_rows {label} {name}: "
-                                     "two runs differ")
-            acc = torch.zeros_like(s_p)
-            results["scatter_add_rows"] = (
-                err, lambda: scatter_add_rows(v, edges.plan_a),
-                lambda: scatter_add_rows_plain(v, edges.plan_a),
-                lambda: acc.index_add_(0, idx64, v),
-                bound(peaks, dtype, nbytes(v, edges.plan_a.perm,
-                                           edges.plan_a.offsets, s_k),
-                      v.numel()))
-
-            for kname, (err, fk, fp, fl, (b_ms, b_by)) in results.items():
-                fns = {"kernel": fk, "plain": fp}
-                if fl is not None:
-                    fns["library"] = fl
-                t = in_turns(fns, {k: 50 for k in fns})
-                log("kernels", kernel=kname, shape=label, dtype=name,
-                    edges=E, nodes=N, max_abs_err=err,
-                    ms=round(t["kernel"], 5), plain_ms=round(t["plain"], 5),
-                    library_ms=round(t["library"], 5) if fl else None,
-                    bound_ms=round(b_ms, 6), bound_by=b_by)
-                if label == "INTEL" and dtype == torch.float32:
-                    summary[kname] = dict(
-                        max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
-                        bound_ms=b_ms, bound_by=b_by,
-                        library_ms=t["library"] if fl else None)
+            if dtype == torch.float32:
+                plain = None
+                if label == "INTEL":
+                    plain = {
+                        "gather_rows": (
+                            0.0, lambda x=poses, i=edges.ab:
+                            gather_rows_plain(x, i),
+                            "gather_rows edges.ab x[", None),
+                        "scatter_add_rows": (
+                            scatter_err, lambda v=Haa, p=edges.plan_a:
+                            scatter_add_rows_plain(v, p),
+                            "scatter_add_rows edges.plan_a v[", None),
+                        "fused_linearize_se2": (
+                            lin_err, lambda a=lin_args:
+                            fused_linearize_se2_plain(*a, robust="dcs"),
+                            "fused_linearize_se2 ", lin_bound),
+                    }
+                timings.append(functools.partial(
+                    time_launches, label, calls, names, peaks, plain,
+                    summary))
 
             panels = real_panels(edges, free, poses, part)
             log("kernels", panels=label, dtype=name, blocks=part.num_blocks,
@@ -374,32 +455,9 @@ def phase_kernels(device, peaks) -> dict:
                                 + PANEL * np.eye(PANEL),
                                 dtype=dtype, device=device)
             err = check_chol(f"spd{m}", A, name, "spd")
-            eye = torch.eye(PANEL, dtype=dtype, device=device).expand(
-                m, -1, -1)
-
-            def library(A=A, eye=eye):
-                L, _ = torch.linalg.cholesky_ex(A)
-                return torch.linalg.solve_triangular(L, eye, upper=False)
-
-            t = in_turns({"kernel": lambda A=A: micro_chol_inv(A),
-                          "plain": lambda A=A: micro_chol_inv_plain(A),
-                          "library": library},
-                         {"kernel": 50, "plain": 3, "library": 50})
-            # The lower triangle of A read, L and inv written.
-            b_ms, b_by = bound(
-                peaks, dtype,
-                m * (PANEL * (PANEL + 1) // 2 + 2 * PANEL ** 2)
-                * A.element_size(),
-                m * 2 * PANEL ** 3 / 3)
-            log("kernels", kernel="micro_chol_inv", shape=f"spd{m}",
-                dtype=name, max_abs_err=err, ms=round(t["kernel"], 5),
-                plain_ms=round(t["plain"], 5),
-                library_ms=round(t["library"], 5), bound_ms=round(b_ms, 6),
-                bound_by=b_by)
-            if m == 16 and dtype == torch.float32:
-                summary["micro_chol_inv"] = dict(
-                    max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
-                    bound_ms=b_ms, bound_by=b_by, library_ms=t["library"])
+            timings.append(functools.partial(
+                time_chol, A, err, peaks,
+                summary if m == 16 and dtype == torch.float32 else None))
     return summary
 
 
@@ -484,12 +542,16 @@ def phase_plain_dcs(device, smi: str) -> None:
     iters = ref["iterations"]
     args = (prob.poses0, prob.switches0, prob.edges, prob.free)
     lm_fixed_iters(*args, prob.scfg, 2, partition=prob.partition)  # warm-up
-    res, wall, _, cost = timed_lm(args, prob.scfg, iters, prob.partition)
+    res, wall, counts, cost = timed_lm(args, prob.scfg, iters,
+                                       prob.partition)
     rel = abs(cost - ref["final_cost"]) / abs(ref["final_cost"])
     log("plain_dcs", initial_cost=float(res.initial_cost), final_cost=cost,
         reference_f64=ref["final_cost"], rel_diff=rel,
         accepted=int(res.accepted), iters=iters, wall_s=round(wall, 4),
-        lm_it_per_s=round(iters / wall, 2), card=json.dumps(smi))
+        lm_it_per_s=round(iters / wall, 2),
+        launches_per_iter=json.dumps({k: n / iters
+                                      for k, n in counts.items()}),
+        card=json.dumps(smi))
     if not rel <= REF_COST_RTOL:
         raise AssertionError(f"plain DCS cost {cost} vs reference "
                              f"{ref['final_cost']}: rel {rel}")
@@ -576,6 +638,12 @@ def phase_blocked(device, smi: str) -> dict:
                 launches_per_iter=json.dumps(
                     {k: n / iters for k, n in counts.items()}),
                 card=json.dumps(smi))
+        native = {k: n / iters for k, n in runs["native"][0][2].items()}
+        over = {k: v for k, v in native.items()
+                if v > LAUNCH_LIMITS.get(k, float("inf"))}
+        if label == "INTEL" and over:
+            raise AssertionError(f"INTEL native launches per iteration "
+                                 f"{over} above {LAUNCH_LIMITS}")
         res, _, counts, cost = runs["blocked_micro"][0]
         if counts["micro_chol_inv"] <= 0:
             raise AssertionError(f"{label}: blocked_micro launched no "
@@ -606,6 +674,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from slam_tpu_torch import runtime
     from slam_tpu_torch.ops import _build
+    from slam_tpu_torch.tools.kernel_times import card_peaks, nvidia_smi
 
     t_all = time.perf_counter()
     device = runtime.setup_device("cuda")
@@ -627,12 +696,14 @@ def main() -> int:
                 or "smem" in line:
             print("  ptxas:", line.strip())
 
+    timings = []
     phases = [
-        ("kernels", lambda: phase_kernels(device, peaks)),
+        ("kernels", lambda: phase_kernels(device, peaks, timings)),
         ("main_path", phase_main_path),
         ("plain_dcs", lambda: phase_plain_dcs(device, smi)),
         ("scale", lambda: phase_scale(device, smi)),
         ("blocked", lambda: phase_blocked(device, smi)),
+        ("kernel_times", lambda: phase_kernel_times(timings)),
     ]
     out = {}
     for name, fn in phases:

@@ -2,7 +2,8 @@
 
 ``nvcc`` compiles every ``csrc/*.cu`` to an object file, one process per
 source, all started together, and links them into one shared library with
-a plain C interface, loaded with ``ctypes``.  The library lands in
+a plain C interface, loaded with ``ctypes``; each entry point is resolved
+once per (kernel, dtype) when the library loads.  The library lands in
 ``slam_tpu_torch/_build/`` under a name keyed by a hash of the sources and
 flags, so an edited source rebuilds and an unchanged one loads at once.
 Nothing is built at import: the first kernel launch builds.
@@ -32,13 +33,16 @@ _F64 = ctypes.c_double
 _INT = ctypes.c_int
 _SIGNATURES = {
     "slam_gather_rows": [_P, _P, _P, _I64, _I64, _P],
-    "slam_scatter_add_rows": [_P, _P, _P, _P, _I64, _I64, _P],
+    "slam_scatter_add_rows": [_P, ctypes.c_int32, _P, _I64, _P],
     "slam_linearize_se2": [_P] * 7 + [_F64, _F64, _INT] + [_P] * 10
     + [_I64, _P],
     "slam_micro_chol_inv": [_P, _P, _P, _I64, _I64, _P],
 }
 
 _lib: ctypes.CDLL | None = None
+#: ``(entry point name, torch dtype) -> ctypes function``, filled by lib().
+_entries: dict = {}
+_raw_stream = None  # device index -> raw handle of its current stream
 #: What the last build did: ``{"path", "seconds", "built", "log"}``.
 build_info: dict = {}
 
@@ -115,16 +119,32 @@ def build() -> pathlib.Path:
 
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
-    global _lib
+    global _lib, _raw_stream
     if _lib is None:
+        import torch
+
         handle = ctypes.CDLL(str(build()))
         for base, argtypes in _SIGNATURES.items():
-            for suffix in ("_f32", "_f64"):
+            for dtype, suffix in ((torch.float32, "_f32"),
+                                  (torch.float64, "_f64")):
                 fn = getattr(handle, base + suffix)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+                _entries[base, dtype] = fn
+        _raw_stream = torch._C._cuda_getCurrentRawStream
         _lib = handle
     return _lib
+
+
+def entry(base: str, dtype):
+    """The C entry point ``base`` for ``dtype`` (float32 or float64)."""
+    fn = _entries.get((base, dtype))
+    if fn is None:
+        if _lib is None:
+            lib()
+            return entry(base, dtype)
+        raise TypeError(f"kernels take float32 or float64, not {dtype}")
+    return fn
 
 
 def check(rc: int, name: str) -> None:
@@ -133,17 +153,10 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
-def suffix(dtype) -> str:
-    import torch
-
-    if dtype == torch.float32:
-        return "_f32"
-    if dtype == torch.float64:
-        return "_f64"
-    raise TypeError(f"kernels take float32 or float64, not {dtype}")
-
-
-def stream_ptr(device) -> int:
-    import torch
-
-    return torch.cuda.current_stream(device).cuda_stream
+def stream_ptr(index: int) -> int:
+    """Raw handle of the current stream of CUDA device ``index``, read anew
+    on every call (so a launch follows a stream switch or a graph
+    capture)."""
+    if _raw_stream is None:
+        lib()
+    return _raw_stream(index)

@@ -77,9 +77,9 @@ def micro_chol_inv(A: Tensor) -> tuple[Tensor, Tensor]:
     inv = torch.empty_like(A)
     if M == 0 or p == 0:
         return L, inv
-    fn = getattr(_build.lib(), "slam_micro_chol_inv" + _build.suffix(A.dtype))
+    fn = _build.entry("slam_micro_chol_inv", A.dtype)
     _build.check(fn(A.data_ptr(), L.data_ptr(), inv.data_ptr(), M, p,
-                    _build.stream_ptr(A.device)), "micro_chol_inv")
+                    _build.stream_ptr(A.get_device())), "micro_chol_inv")
     micro_chol_inv.launches += 1
     return L, inv
 

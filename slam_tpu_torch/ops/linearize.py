@@ -135,12 +135,12 @@ def fused_linearize_se2(
                 for k in _BLOCKS})
     out.update({k: torch.empty((E,), dtype=dtype, device=dev)
                 for k in _SCALARS})
-    fn = getattr(_build.lib(), "slam_linearize_se2" + _build.suffix(dtype))
+    fn = _build.entry("slam_linearize_se2", dtype)
     order = ("e", "Ja", "Jb", "Haa", "Hbb", "Hoff", "ga", "gb", "w", "rho")
     _build.check(fn(*(t.data_ptr() for t in ins), float(phi), float(delta),
                     int(robust == "dcs"),
                     *(out[k].data_ptr() for k in order), E,
-                    _build.stream_ptr(dev)),
+                    _build.stream_ptr(dev.index)),
                  "fused_linearize_se2")
     fused_linearize_se2.launches += 1
     return out

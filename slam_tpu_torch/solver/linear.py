@@ -2,8 +2,9 @@
 
 Port of the CPU path of ``slam_tpu/solver/linear.py::dense_solve``: the
 block system is assembled into a dense matrix by one ``scatter_add_rows``
-over flat block-pair indices (the plan is built once per graph by
-:func:`dense_plan`), Jacobi-equilibrated and Cholesky-factored.  Pose
+over block-pair indices (the plan is built once per graph by
+:func:`dense_plan`; its block grid lands the blocks straight in the
+row-major matrix), Jacobi-equilibrated and Cholesky-factored.  Pose
 unknowns only: the joint switch system of method 2 is ROADMAP A9.
 """
 
@@ -46,13 +47,14 @@ def nan_unless_factored(x: Tensor, info: Tensor) -> Tensor:
 
 def dense_plan(edges: EdgeSet) -> SegmentPlan:
     """Scatter plan of ``[Hd (n), Hoff (E), Hoff^T (E)]`` blocks into the
-    ``n x n`` grid of D x D blocks (flat index ``row * n + col``)."""
+    ``n x n`` grid of D x D blocks (segment ``row * n + col``) of the
+    ``(n*D, n*D)`` matrix."""
     n = edges.num_nodes
     ij = edges.ij.cpu().numpy().astype(np.int64)
     a, b = ij[:, 0], ij[:, 1]
     nodes = np.arange(n)
     idx = np.concatenate([nodes * n + nodes, a * n + b, b * n + a])
-    return segment_plan(idx, n * n, device=edges.ij.device)
+    return segment_plan(idx, n * n, device=edges.ij.device, grid=((), n, n))
 
 
 def dense_solve(system: BlockSystem, edges: EdgeSet, lam: Tensor,
@@ -62,8 +64,7 @@ def dense_solve(system: BlockSystem, edges: EdgeSet, lam: Tensor,
     E = edges.num_edges
     blocks = torch.cat([damped_diag(system, lam), system.Hoff,
                         system.Hoff.transpose(-1, -2)]).reshape(-1, D * D)
-    H = (scatter_add_rows(blocks, plan).reshape(n, n, D, D)
-         .permute(0, 2, 1, 3).reshape(n * D, n * D))
+    H = scatter_add_rows(blocks, plan)
     rhs = -system.g.reshape(-1)
     # Jacobi equilibration improves f32 conditioning markedly.
     dscale = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(H), min=1e-12))

@@ -2,8 +2,9 @@
 
 Port of ``slam_tpu/solver/linearize.py``.  Robust modes none/dcs (methods
 0/1) run the per-edge chain as the fused ``linearize_se2`` kernel
-(``ops/linearize.py``); sc/sc_varpro run the plain chain below.  The node
-sums go through ``scatter_add_rows``.
+(``ops/linearize.py``); sc/sc_varpro run the plain chain below.  The
+endpoint gathers of a call are one ``gather_rows`` launch each, and its
+node sums one ``scatter_add_rows`` launch.
 """
 
 from __future__ import annotations
@@ -57,18 +58,20 @@ def linearize(
     fixed_identity_scale: float = 1.0,
 ) -> BlockSystem:
     """Linearise the robust pose-graph objective at ``poses``."""
-    n = poses.shape[0]
-    pa = edges.gather_a(poses)
-    pb = edges.gather_b(poses)
+    if poses.shape[0] != edges.num_nodes:
+        raise ValueError(f"EdgeSet plans cover {edges.num_nodes} nodes, "
+                         f"got {poses.shape[0]} poses")
+    pa, pb = edges.gather_ab(poses)
+    fa, fb = edges.gather_ab(free.node)
     if robust in ("none", "dcs") and model.pose_dim == 3:
-        return _linearize_fused(poses, edges, free, pa, pb, model=model,
-                                robust=robust, dcs_phi=dcs_phi,
+        return _linearize_fused(poses, edges, free, pa, pb, fa, fb,
+                                model=model, robust=robust, dcs_phi=dcs_phi,
                                 huber_delta=huber_delta,
                                 fixed_identity_scale=fixed_identity_scale)
 
     e, Ja, Jb = model.residual_and_jacobians(pa, pb, edges.meas)
-    Ja = Ja * edges.gather_a(free.node)[:, None, None]
-    Jb = Jb * edges.gather_b(free.node)[:, None, None]
+    Ja = Ja * fa[:, None, None]
+    Jb = Jb * fb[:, None, None]
     loop_f = edges.is_loop.to(poses.dtype)
     m = loop_f[:, None]
     mm = loop_f[:, None, None]
@@ -93,8 +96,7 @@ def linearize(
     Hoff = wj * torch.einsum("eki,ekj->eij", Ja, Jb)
     ga = w[:, None] * torch.einsum("eki,ek->ei", Ja, e)
     gb = w[:, None] * torch.einsum("eki,ek->ei", Jb, e)
-    Hdiag = edges.scatter_a(Haa, n) + edges.scatter_b(Hbb, n)
-    g = edges.scatter_a(ga, n) + edges.scatter_b(gb, n)
+    Hdiag, g = edges.node_sums((Haa, Hbb), (ga, gb))
     Hdiag = Hdiag + _fixed_identity(free, model.tangent_dim,
                                     fixed_identity_scale)
 
@@ -127,19 +129,18 @@ def _neutral_switches(E: int, model, like: Tensor) -> dict:
                 Hss=torch.ones((E,), **kw), gs=torch.zeros((E,), **kw))
 
 
-def _linearize_fused(poses, edges, free, pa, pb, *, model, robust, dcs_phi,
-                     huber_delta, fixed_identity_scale) -> BlockSystem:
+def _linearize_fused(poses, edges, free, pa, pb, fa, fb, *, model, robust,
+                     dcs_phi, huber_delta,
+                     fixed_identity_scale) -> BlockSystem:
     """The per-edge chain as one ``fused_linearize_se2`` call, node sums
-    through ``scatter_add_rows``."""
+    through one ``scatter_add_rows`` launch."""
     from slam_tpu_torch.ops.linearize import fused_linearize_se2
 
-    n = poses.shape[0]
     out = fused_linearize_se2(
-        pa, pb, edges.meas, edges.gather_a(free.node),
-        edges.gather_b(free.node), edges.is_loop.to(poses.dtype),
+        pa, pb, edges.meas, fa, fb, edges.is_loop.to(poses.dtype),
         edges.active, dcs_phi, huber_delta, robust=robust)
-    Hdiag = edges.scatter_a(out["Haa"], n) + edges.scatter_b(out["Hbb"], n)
-    g = edges.scatter_a(out["ga"], n) + edges.scatter_b(out["gb"], n)
+    Hdiag, g = edges.node_sums((out["Haa"], out["Hbb"]),
+                               (out["ga"], out["gb"]))
     Hdiag = Hdiag + _fixed_identity(free, model.tangent_dim,
                                     fixed_identity_scale)
     E = edges.num_edges
@@ -163,8 +164,7 @@ def cost_only(
     sc_prior_lambda: float,
 ) -> Tensor:
     """Objective value only (for LM step accept/reject)."""
-    e = model.residual(edges.gather_a(poses), edges.gather_b(poses),
-                       edges.meas)
+    e = model.residual(*edges.gather_ab(poses), edges.meas)
     loop_f = edges.is_loop.to(poses.dtype)
     if robust == "dcs":
         psi = kernels.dcs_psi(e, dcs_phi, dims=model.dcs_dims)
@@ -185,8 +185,7 @@ def cost_only(
 
 def loop_psi(poses: Tensor, edges: EdgeSet, model, phi: float) -> Tensor:
     """Per-edge DCS psi at ``poses`` from the raw xy residual."""
-    e = model.residual(edges.gather_a(poses), edges.gather_b(poses),
-                       edges.meas)
+    e = model.residual(*edges.gather_ab(poses), edges.meas)
     return kernels.dcs_psi(e, phi, dims=model.dcs_dims)
 
 

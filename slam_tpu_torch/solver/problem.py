@@ -3,8 +3,10 @@
 Port of ``slam_tpu/solver/problem.py``.  An :class:`EdgeSet` holds index
 tensors only -- no one-hot incidence operators, no chain head (both were
 TPU workarounds) -- plus the precomputed CSR scatter plans of both
-endpoints.  Every edge/node gather goes through the ``gather_rows`` kernel
-and every node sum through ``scatter_add_rows``.  ``active`` is the
+endpoints.  Every edge/node gather goes through the ``gather_rows`` kernel,
+one launch for both endpoints, and every node sum through the
+``scatter_add_rows`` kernel, one launch for all of a linearisation's
+sums.  ``active`` is the
 per-edge weight that pads, masks and windows without new plans:
 ``edges._replace(active=mask)`` keeps them.
 """
@@ -20,7 +22,7 @@ from slam_tpu_torch.graph import ODOMETRY_EDGE, PoseGraph
 from slam_tpu_torch.ops.gather import (
     SegmentPlan,
     gather_rows,
-    scatter_add_rows,
+    scatter_add_groups,
     segment_plan,
 )
 from slam_tpu_torch.runtime import require_type
@@ -36,6 +38,7 @@ class EdgeSet(NamedTuple):
     info: Tensor        # (E, 6) information entries
     plan_a: SegmentPlan  # endpoint a: gather index + scatter plan
     plan_b: SegmentPlan  # endpoint b
+    ab: Tensor          # (2E,) int32 endpoints a, then endpoints b
 
     @property
     def num_edges(self) -> int:
@@ -45,26 +48,19 @@ class EdgeSet(NamedTuple):
     def num_nodes(self) -> int:
         return self.plan_a.n
 
-    def gather_a(self, x: Tensor) -> Tensor:
-        """``x[a]`` through the ``gather_rows`` kernel."""
-        return gather_rows(x, self.plan_a.idx)
+    def gather_ab(self, x: Tensor) -> tuple[Tensor, Tensor]:
+        """``(x[a], x[b])`` through one ``gather_rows`` launch."""
+        both = gather_rows(x, self.ab)
+        E = self.num_edges
+        return both[:E], both[E:]
 
-    def gather_b(self, x: Tensor) -> Tensor:
-        return gather_rows(x, self.plan_b.idx)
-
-    def scatter_a(self, v: Tensor, n: int) -> Tensor:
-        """``segment_sum(v, a, n)`` through the ``scatter_add_rows`` kernel."""
-        _check_n(self.plan_a, n)
-        return scatter_add_rows(v, self.plan_a)
-
-    def scatter_b(self, v: Tensor, n: int) -> Tensor:
-        _check_n(self.plan_b, n)
-        return scatter_add_rows(v, self.plan_b)
-
-
-def _check_n(plan: SegmentPlan, n: int) -> None:
-    if n != plan.n:
-        raise ValueError(f"EdgeSet plans cover {plan.n} nodes, asked for {n}")
+    def node_sums(self, *pairs) -> list[Tensor]:
+        """``segment_sum(va, a) + segment_sum(vb, b)`` of every per-edge
+        pair ``(va, vb)``, all sums in one ``scatter_add_rows`` launch."""
+        sums = scatter_add_groups([(v, plan) for va, vb in pairs
+                                   for v, plan in ((va, self.plan_a),
+                                                   (vb, self.plan_b))])
+        return [sums[2 * k] + sums[2 * k + 1] for k in range(len(pairs))]
 
 
 class FreeMask(NamedTuple):
@@ -92,6 +88,7 @@ def edge_set_from_arrays(ij, meas, is_loop, active, info, num_nodes: int,
         info=f(info),
         plan_a=segment_plan(ij[:, 0], num_nodes, device=device),
         plan_b=segment_plan(ij[:, 1], num_nodes, device=device),
+        ab=torch.as_tensor(ij.T.reshape(-1).astype(np.int32), device=device),
     )
 
 

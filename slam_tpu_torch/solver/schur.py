@@ -13,7 +13,10 @@ same partition) but emits integer slot maps (:class:`SlotMaps`) instead of
 one-hot selectors.  From those, :func:`partition_from_slots` precomputes
 CSR scatter plans, and the device solve assembles A, F, b, C and the
 separator reductions by scattering per-edge D x D block products through
-``scatter_add_rows`` (the JAX package expands one-hot matmuls instead).
+``scatter_add_rows`` (the JAX package expands one-hot matmuls instead):
+one launch for the five assembly plans, whose block-grid plans place
+their blocks straight into the row-major matrices, one for the separator
+reductions and one for the write-back.
 All matrices use node-major unknowns (slot * D + coordinate), where the
 JAX package's are coordinate-major, so the two packages factor permuted
 matrices and only the solution is comparable between them.
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 
 from slam_tpu_torch.ops.gather import SegmentPlan, gather_rows, \
-    scatter_add_rows, segment_plan
+    scatter_add_groups, scatter_add_rows, segment_plan
 from slam_tpu_torch.solver import blocked_chol as bc
 from slam_tpu_torch.solver.linear import Update, _DIAG_MAX, _DIAG_MIN, \
     nan_unless_factored
@@ -399,21 +402,23 @@ def build_slots(
 class SchurPartition(NamedTuple):
     """Device form of a partition: slot gathers, masks and the CSR plans
     that assemble the block systems.  Per-edge sources are the block rows
-    ``[Haa, Hbb, Hab, Hba]`` (4E) and the gradients ``[ga, gb]`` (2E)."""
+    ``[Haa, Hbb, Hab, Hba]`` (4E) and the gradients ``[ga, gb]`` (2E);
+    the block-grid plans give row-major ``(.., rows*D, cols*D)`` matrices."""
 
     slots: SlotMaps
-    int_gather: Tensor   # (P*ni,) int32 node of each interior slot (pad 0)
+    node_gather: Tensor  # (P*ni + ns + P*nsk,) int32 node of each interior,
+    #                      separator and local separator slot (pad 0)
     int_mask: Tensor     # (P, ni) 1 for real interior slots
-    sep_gather: Tensor   # (ns,) int32 node of each separator slot (pad 0)
     sep_live: Tensor     # (ns,) 1 for real separator slots
     loc_gather: Tensor   # (P*nsk,) int32 global sep slot of each local slot
     loc_mask: Tensor     # (P, nsk)
+    loc_live: Tensor     # (P, nsk) loc_mask * sep_live[loc_gather]
     plan_A: SegmentPlan    # 4E block rows -> (P, ni, ni) block grid
-    plan_F: SegmentPlan    # 4E block rows -> (P, ni, nsk)
+    plan_F: SegmentPlan    # 4E block rows -> (P, ni, nsk) block grid
     plan_b: SegmentPlan    # 2E gradient rows -> (P, ni)
-    plan_C: SegmentPlan    # 4E block rows -> (ns, ns)
+    plan_C: SegmentPlan    # 4E block rows -> (ns, ns) block grid
     plan_bs: SegmentPlan   # 2E gradient rows -> (ns,)
-    plan_S: SegmentPlan    # (P, nsk, nsk) local blocks -> (ns, ns)
+    plan_S: SegmentPlan    # (P, nsk, nsk) local blocks -> (ns, ns) grid
     plan_rs: SegmentPlan   # (P, nsk) local rows -> (ns,)
     plan_out: SegmentPlan  # [separator slots, interior slots] -> nodes
 
@@ -477,14 +482,15 @@ def partition_from_slots(slots: SlotMaps, dtype=torch.float64,
     N, E = s.num_nodes, s.num_edges
     blk = np.repeat(np.arange(P), s.edge_ids.shape[1])
 
-    def plan(idx, n, src):
-        return segment_plan(idx, n, src=src, device=device)
+    def plan(idx, n, src, grid=None):
+        return segment_plan(idx, n, src=src, device=device, grid=grid)
 
     # A: interior x interior blocks of every owned edge.
     e = s.edge_ids.reshape(-1)
     ia, ib = s.int_a.reshape(-1), s.int_b.reshape(-1)
     r, c, src, sel = _block_entries(e, ia, ib, E)
-    plan_A = plan((blk[sel] * ni + r) * ni + c, P * ni * ni, src)
+    plan_A = plan((blk[sel] * ni + r) * ni + c, P * ni * ni, src,
+                  ((P,), ni, ni))
     # F: interior rows x local separator columns (Hab at (ia, sb), Hba at
     # (ib, sa); an endpoint is interior or separator, never both).
     sa, sb = s.sep_a.reshape(-1), s.sep_b.reshape(-1)
@@ -493,13 +499,13 @@ def partition_from_slots(slots: SlotMaps, dtype=torch.float64,
     f_idx = np.concatenate([(blk[ok_ab] * ni + ia[ok_ab]) * nsk + sb[ok_ab],
                             (blk[ok_ba] * ni + ib[ok_ba]) * nsk + sa[ok_ba]])
     f_src = np.concatenate([2 * E + e[ok_ab], 3 * E + e[ok_ba]])
-    plan_F = plan(f_idx, P * ni * nsk, f_src)
+    plan_F = plan(f_idx, P * ni * nsk, f_src, ((P,), ni, nsk))
     rows, src, sel = _grad_entries(e, ia, ib, E)
     plan_b = plan(blk[sel] * ni + rows, P * ni, src)
     # C and its rhs: every separator edge, global separator slots.
     se = s.sepedge_ids
     r, c, src, _ = _block_entries(se, s.se_sep_a, s.se_sep_b, E)
-    plan_C = plan(r * ns + c, ns * ns, src)
+    plan_C = plan(r * ns + c, ns * ns, src, ((), ns, ns))
     rows, src, _ = _grad_entries(se, s.se_sep_a, s.se_sep_b, E)
     plan_bs = plan(rows, ns, src)
     # Local -> global separator expansion of the per-block reductions.
@@ -508,7 +514,8 @@ def partition_from_slots(slots: SlotMaps, dtype=torch.float64,
     m2 = np.broadcast_to(loc[:, None, :], (P, nsk, nsk))
     ok = (m1 >= 0) & (m2 >= 0)
     plan_S = plan((m1 * ns + m2)[ok], ns * ns,
-                  np.arange(P * nsk * nsk).reshape(P, nsk, nsk)[ok])
+                  np.arange(P * nsk * nsk).reshape(P, nsk, nsk)[ok],
+                  ((), ns, ns))
     okl = loc >= 0
     plan_rs = plan(loc[okl], ns, np.arange(P * nsk).reshape(P, nsk)[okl])
     # Solution back to nodes: rows [x_sep (ns), x_int (P*ni)].
@@ -524,11 +531,18 @@ def partition_from_slots(slots: SlotMaps, dtype=torch.float64,
         return torch.as_tensor((a >= 0).astype(np.float64), dtype=dtype,
                                device=device)
 
+    # The local separator slots' nodes, for the scales the assembly
+    # gathers with the interior and separator values in one launch.
+    loc_node = np.maximum(s.sep_ids, 0)[np.maximum(loc, 0)]
+    loc_live = (loc >= 0) & (s.sep_ids[np.maximum(loc, 0)] >= 0)
     return SchurPartition(
         slots=slots,
-        int_gather=idx32(s.int_ids), int_mask=mask(s.int_ids),
-        sep_gather=idx32(s.sep_ids), sep_live=mask(s.sep_ids),
+        node_gather=idx32(np.concatenate([s.int_ids.reshape(-1), s.sep_ids,
+                                          loc_node.reshape(-1)])),
+        int_mask=mask(s.int_ids), sep_live=mask(s.sep_ids),
         loc_gather=idx32(s.loc_ids), loc_mask=mask(s.loc_ids),
+        loc_live=torch.as_tensor(loc_live.astype(np.float64), dtype=dtype,
+                                 device=device),
         plan_A=plan_A, plan_F=plan_F, plan_b=plan_b, plan_C=plan_C,
         plan_bs=plan_bs, plan_S=plan_S, plan_rs=plan_rs, plan_out=plan_out,
     )
@@ -555,18 +569,10 @@ def build_partition(
 # Device solve
 # ---------------------------------------------------------------------------
 
-def _grid(blocks: Tensor, lead: tuple[int, ...], rows: int, cols: int,
-          D: int) -> Tensor:
-    """(..., rows, cols, D, D) block grid -> (..., rows*D, cols*D)."""
-    g = blocks.reshape(*lead, rows, cols, D, D)
-    nd = len(lead)
-    g = g.permute(*range(nd), nd, nd + 2, nd + 1, nd + 3)
-    return g.reshape(*lead, rows * D, cols * D)
-
-
 def _blocks(mat: Tensor, lead: tuple[int, ...], rows: int, cols: int,
             D: int) -> Tensor:
-    """Inverse of :func:`_grid`, flattened to (prod(lead)*rows*cols, D*D)."""
+    """(..., rows*D, cols*D) matrix -> its D x D blocks, row-major, as
+    (prod(lead)*rows*cols, D*D) rows."""
     g = mat.reshape(*lead, rows, D, cols, D)
     nd = len(lead)
     g = g.permute(*range(nd), nd, nd + 2, nd + 1, nd + 3)
@@ -602,19 +608,21 @@ def assemble(system: BlockSystem, part: SchurPartition,
                         1.0 / torch.sqrt(clipd))
     dampv = lam * clipd * scale * scale
     node_vals = torch.cat([scale, dampv, pin], dim=1)         # (N, 3D)
-    vi = (gather_rows(node_vals, part.int_gather).reshape(P, ni, 3, D)
+    vals = gather_rows(node_vals, part.node_gather)
+    vi = (vals[:P * ni].reshape(P, ni, 3, D)
           * part.int_mask[:, :, None, None])
     s_int = vi[:, :, 0].reshape(P, ni * D)
     diag_int = (vi[:, :, 1] + torch.maximum(
         vi[:, :, 2], 1.0 - part.int_mask[:, :, None])).reshape(P, ni * D)
-    vs = (gather_rows(node_vals, part.sep_gather).reshape(ns, 3, D)
+    vs = (vals[P * ni:P * ni + ns].reshape(ns, 3, D)
           * part.sep_live[:, None, None])
-    s_sep = vs[:, 0]                                          # (ns, D)
+    s_sep = vs[:, 0].reshape(ns * D)
     diag_sep = (vs[:, 1] + torch.maximum(
         vs[:, 2], 1.0 - part.sep_live[:, None])).reshape(ns * D)
-    s_loc = (gather_rows(s_sep, part.loc_gather).reshape(P, nsk, D)
-             * part.loc_mask[:, :, None]).reshape(P, nsk * D)
-    s_sep = s_sep.reshape(ns * D)
+    # The masks are 0/1 and the scales positive, so this is s_sep's value
+    # at each local slot to the bit.
+    s_loc = (vals[P * ni + ns:].reshape(P, nsk, 3, D)[:, :, 0]
+             * part.loc_live[:, :, None]).reshape(P, nsk * D)
 
     # Per-edge block products: the rows every assembly plan reads.
     wJa = system.w[:, None, None] * system.Ja
@@ -627,14 +635,14 @@ def assemble(system: BlockSystem, part: SchurPartition,
     rows2 = torch.cat([torch.einsum("eki,ek->ei", wJa, system.r),
                        torch.einsum("eki,ek->ei", wJb, system.r)])
 
-    A = _grid(scatter_add_rows(rows4, part.plan_A), (P,), ni, ni, D)
+    A, F, b, C, b_sep = scatter_add_groups([
+        (rows4, part.plan_A), (rows4, part.plan_F), (rows2, part.plan_b),
+        (rows4, part.plan_C), (rows2, part.plan_bs)])
     A = A * s_int[:, :, None] * s_int[:, None, :] + torch.diag_embed(diag_int)
-    F = _grid(scatter_add_rows(rows4, part.plan_F), (P,), ni, nsk, D)
     F = F * s_int[:, :, None] * s_loc[:, None, :]
-    b = -scatter_add_rows(rows2, part.plan_b).reshape(P, ni * D) * s_int
-    C = _grid(scatter_add_rows(rows4, part.plan_C), (), ns, ns, D)
+    b = -b.reshape(P, ni * D) * s_int
     C = C * s_sep[:, None] * s_sep[None, :] + torch.diag(diag_sep)
-    b_sep = -scatter_add_rows(rows2, part.plan_bs).reshape(ns * D) * s_sep
+    b_sep = -b_sep.reshape(ns * D) * s_sep
     return SchurSystem(A, F, b, C, b_sep, s_int, s_sep)
 
 
@@ -682,10 +690,11 @@ def schur_solve(system: BlockSystem, edges: EdgeSet, part: SchurPartition,
         G_F, g_b = G_ext[..., :-1], G_ext[..., -1]
         S_loc = G_F.transpose(-1, -2) @ G_F                   # (P, D*nsk, .)
         r_loc = G_F.transpose(-1, -2) @ g_b[:, :, None]
-    S = C - _grid(scatter_add_rows(_blocks(S_loc, (P,), nsk, nsk, D),
-                                   part.plan_S), (), ns, ns, D)
-    rhs_s = b_sep - scatter_add_rows(r_loc.reshape(P * nsk, D),
-                                     part.plan_rs).reshape(ns * D)
+    S_sum, r_sum = scatter_add_groups([
+        (_blocks(S_loc, (P,), nsk, nsk, D), part.plan_S),
+        (r_loc.reshape(P * nsk, D), part.plan_rs)])
+    S = C - S_sum
+    rhs_s = b_sep - r_sum.reshape(ns * D)
     if blocked:
         # A batch of one: the panels never take the micro kernel.
         sfac = bc.blocked_cholesky(S, panel=panel, inner=panel_inner)

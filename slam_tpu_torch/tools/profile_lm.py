@@ -6,8 +6,10 @@ For INTEL+50 seed 42 (plain DCS, the global solve's set-up) and M10000+50
 seed 0 (dataset init, auto partition), float32, and each factorisation --
 native, blocked (panel 128) with the plain panel factor, blocked with
 ``micro_chol_inv`` -- it runs ``2 x --iters`` ``lm_fixed_iters``
-iterations to warm up, ``2 x --iters`` unprofiled for the wall clock, and
-``--iters`` under ``torch.profiler``.  It prints one JSON line per case:
+iterations to warm up and ``2 x --iters`` unprofiled for the wall clock;
+then, once every case has its wall clock (a torch.profiler session
+leaves the later host-bound work of its process slower), ``--iters``
+under ``torch.profiler``.  It prints one JSON line per case:
 wall ms per iteration, the summed device time of the kernels (events on
 the CUDA device, so no operator is counted twice) per iteration, their
 ratio (the device's busy share), kernel launches per iteration, and the
@@ -34,9 +36,9 @@ def device_us(event) -> float:
     return float(event.self_device_time_total)
 
 
-def profile_case(args, cfg, part, iters: int, top: int) -> dict:
-    from torch.profiler import ProfilerActivity, profile
-
+def wall_case(args, cfg, part, iters: int) -> float:
+    """Wall ms per iteration of ``2 x iters`` iterations after as many to
+    warm up."""
     from slam_tpu_torch.solver.lm import lm_fixed_iters
 
     lm_fixed_iters(*args, cfg, 2 * iters, partition=part)
@@ -44,7 +46,15 @@ def profile_case(args, cfg, part, iters: int, top: int) -> dict:
     t0 = time.perf_counter()
     lm_fixed_iters(*args, cfg, 2 * iters, partition=part)
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / (2 * iters)
+    return (time.perf_counter() - t0) * 1e3 / (2 * iters)
+
+
+def profile_case(args, cfg, part, iters: int, top: int,
+                 wall_ms: float) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    from slam_tpu_torch.solver.lm import lm_fixed_iters
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         lm_fixed_iters(*args, cfg, iters, partition=part)
@@ -81,13 +91,16 @@ def main(argv=None) -> int:
                   prob.scfg, prob.partition),
         "M10000": (m.args, m.cfg, m.partition),
     }
-    for label, (lm_args, base, part) in cases.items():
-        for name, kw in CONFIGS.items():
-            out = profile_case(lm_args, base.replace(**kw), part,
-                               args.iters, args.top)
-            print(json.dumps({"shape": label, "config": name,
-                              "card": torch.cuda.get_device_name(0), **out}),
-                  flush=True)
+    runs = [(label, name, lm_args, base.replace(**kw), part)
+            for label, (lm_args, base, part) in cases.items()
+            for name, kw in CONFIGS.items()]
+    walls = [wall_case(lm_args, cfg, part, args.iters)
+             for _, _, lm_args, cfg, part in runs]
+    for (label, name, lm_args, cfg, part), wall_ms in zip(runs, walls):
+        out = profile_case(lm_args, cfg, part, args.iters, args.top, wall_ms)
+        print(json.dumps({"shape": label, "config": name,
+                          "card": torch.cuda.get_device_name(0), **out}),
+              flush=True)
     return 0
 
 
