@@ -16,11 +16,17 @@ the script exits non-zero and prints no result line):
      gather bitwise equal to ``index_select``; each grouped scatter
      launch bitwise equal to itself run again and to its groups launched
      one at a time, and within TOL of its plain version;
-   - the linearisation at the same shapes;
+   - the linearisation at the same shapes: the solver's indexed entry
+     (the kernel reads the endpoints itself) and the JAX-shaped entry on
+     gathered inputs, each within TOL of its plain version and the two
+     bitwise equal;
    - ``micro_chol_inv`` on SPD batches of (16, 128, 128) and
      (32, 128, 128), and on real panels: the first and the trailing
      diagonal panel of the equilibrated Schur interiors of INTEL+50 and
-     M10000+50 at their initial poses, lambda = 1e-4;
+     M10000+50 at their initial poses, lambda = 1e-4; L bitwise equal to
+     the plain version's, the inverse within TOL (SPD) or RESID_FACTOR
+     (real panels), and every launch shape (threads per CTA, CTAs per
+     matrix) bitwise equal to the default;
 3. the main path through the CLI, ``INTEL 50 1 --seed 42`` (auto init,
    auto solver = Schur, rescue on, float32): the output files, the launch
    count of every kernel during that run, and the ATE against the golden
@@ -42,7 +48,9 @@ the script exits non-zero and prints no result line):
    profiler session last, since one leaves the later host-bound calls of
    its process slower (``[kernels]`` lines, float32; and
    ``micro_chol_inv`` in float64): per launch and per plan of the
-   recorded iterations, and on the SPD batches, the kernel (``ms``: CUDA
+   recorded iterations (``micro_chol_inv`` on the real (16, 128, 128)
+   INTEL and (32, 128, 128) M10000 batches), and on the SPD batches,
+   under each launch shape, the kernel (``ms``: CUDA
    events around 50 back-to-back calls; ``device_ms``: its device events
    under torch.profiler; ``host_us``: host time per call with no sync),
    the plain version, the library call that computes the same function,
@@ -107,12 +115,10 @@ PHASE_KERNELS = {
                      "fused_linearize_se2", "micro_chol_inv"),
 }
 # Launches per LM iteration of native INTEL plain DCS (phase 6d): one
-# gather per source and one scatter per group of sums.
-LAUNCH_LIMITS = {"gather_rows": 6, "scatter_add_rows": 4}
+# gather per source outside the linearisation (which reads its endpoints
+# itself) and one scatter per group of sums.
+LAUNCH_LIMITS = {"gather_rows": 4, "scatter_add_rows": 4}
 REPS = 50                 # calls per timing
-# Operations per edge of the linearisation kernel: about 200 flops and 9
-# transcendentals (slam_tpu_torch/csrc/linearize_se2.cu).
-LINEARIZE_OPS_PER_EDGE = 209
 
 
 def log(phase: str, **fields) -> None:
@@ -137,10 +143,6 @@ def max_err(a, b) -> tuple[float, float]:
     err = (a - b).abs().max().item() if a.numel() else 0.0
     scale = max(1.0, b.abs().max().item() if b.numel() else 0.0)
     return err, scale
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def require_launches(phase: str, counts: dict) -> None:
@@ -191,11 +193,22 @@ def check_chol(label: str, A, dtype_name: str, gate: str) -> float:
     tolerance) or "residual" (against the plain version's residuals).
     Returns the max abs error of L and inv against the plain version."""
     from slam_tpu_torch.ops.chol import micro_chol_inv, micro_chol_inv_plain
+    from slam_tpu_torch.tools.kernel_times import chol_shapes
 
     Lk, ik = micro_chol_inv(A)
     torch.cuda.synchronize()
     Lp, ip = micro_chol_inv_plain(A)
     p = A.shape[-1]
+    if not torch.equal(Lk, Lp):
+        raise AssertionError(f"micro_chol_inv {label} {dtype_name}: L not "
+                             "bitwise equal to the plain version's")
+    for threads, ctas in chol_shapes(A)[1:]:
+        Lt, it = micro_chol_inv(A, threads=threads, ctas=ctas)
+        torch.cuda.synchronize()
+        if not (torch.equal(Lt, Lk) and torch.equal(it, ik)):
+            raise AssertionError(
+                f"micro_chol_inv {label} {dtype_name}: {threads} threads x "
+                f"{ctas} CTAs differ from the default")
     upper = torch.triu(torch.ones(p, p, dtype=torch.bool, device=A.device),
                        1)
     if not (bool((Lk[:, upper] == 0).all()) and bool((ik[:, upper] == 0)
@@ -303,28 +316,24 @@ def time_launches(label: str, calls, names, peaks, plain, summary):
 
 
 def time_chol(A, err: float, peaks, summary):
-    """Times of ``micro_chol_inv`` on one SPD batch against its plain
-    version and the library pair; with ``summary``, the result line's.
-    Returns ``(rows, fns, report)`` for :func:`phase_kernel_times`."""
+    """Times of ``micro_chol_inv`` on one SPD batch, under each launch
+    shape, against its plain version and the library pair; with
+    ``summary``, the result line's (the default shape).  Returns ``(rows,
+    fns, report)`` for :func:`phase_kernel_times`."""
     from slam_tpu_torch.ops.chol import micro_chol_inv, micro_chol_inv_plain
     from slam_tpu_torch.tools import kernel_times as kt
 
     m = A.shape[0]
-    eye = torch.eye(PANEL, dtype=A.dtype, device=A.device).expand(m, -1, -1)
-
-    def library():
-        L, _ = torch.linalg.cholesky_ex(A)
-        return torch.linalg.solve_triangular(L, eye, upper=False)
-
-    t = in_turns({"kernel": lambda: micro_chol_inv(A),
+    nbytes, ops, library = kt.chol_work(A)
+    shapes = {f"{t}x{c}": functools.partial(micro_chol_inv, A, threads=t,
+                                            ctas=c)
+              for t, c in kt.chol_shapes(A)[1:]}
+    t = in_turns({"kernel": lambda: micro_chol_inv(A), **shapes,
                   "plain": lambda: micro_chol_inv_plain(A),
                   "library": library},
-                 {"kernel": REPS, "plain": 3, "library": REPS})
-    # The lower triangle of A read, L and inv written.
-    b_ms, b_by = kt.bound(
-        peaks, A.dtype,
-        m * (PANEL * (PANEL + 1) // 2 + 2 * PANEL ** 2) * A.element_size(),
-        m * 2 * PANEL ** 3 / 3)
+                 {"kernel": REPS, **{k: REPS for k in shapes}, "plain": 3,
+                  "library": REPS})
+    b_ms, b_by = kt.bound(peaks, A.dtype, nbytes, ops)
     row = dict(max_abs_err=err, ms=t["kernel"],
                host_us=kt.host_us(lambda: micro_chol_inv(A), REPS),
                plain_ms=t["plain"], bound_ms=b_ms, bound_by=b_by,
@@ -333,7 +342,9 @@ def time_chol(A, err: float, peaks, summary):
     def report():
         log("kernels", kernel="micro_chol_inv", shape=f"spd{m}",
             dtype=str(A.dtype).replace("torch.", ""), max_abs_err=err,
-            ms=round(row["ms"], 5), device_ms=round(row["device_ms"], 5),
+            ms=round(row["ms"], 5),
+            ms_threads_x_ctas=json.dumps({k: round(t[k], 5) for k in shapes}),
+            device_ms=round(row["device_ms"], 5),
             host_us=round(row["host_us"], 2),
             plain_ms=round(row["plain_ms"], 5),
             library_ms=round(row["library_ms"], 5), bound_ms=round(b_ms, 6),
@@ -367,10 +378,11 @@ def phase_kernels(device, peaks, timings: list) -> dict:
     of 16 panels for ``micro_chol_inv``)."""
     from slam_tpu_torch.ops.gather import gather_rows, gather_rows_plain, \
         scatter_add_rows_plain
-    from slam_tpu_torch.ops.linearize import fused_linearize_se2, \
-        fused_linearize_se2_plain
+    from slam_tpu_torch.ops.linearize import edge_prep, \
+        fused_linearize_se2, fused_linearize_se2_indexed, \
+        fused_linearize_se2_indexed_plain, fused_linearize_se2_plain
     from slam_tpu_torch.tools import kernel_times as kt
-    from slam_tpu_torch.tools.problems import intel50, m10000
+    from slam_tpu_torch.tools.problems import CONFIGS, intel50, m10000
 
     summary = {}
     for dtype in (torch.float32, torch.float64):
@@ -383,7 +395,11 @@ def phase_kernels(device, peaks, timings: list) -> dict:
         for label, (args, cfg, part) in shapes.items():
             poses, _, edges, free = args
             E, N = edges.num_edges, poses.shape[0]
-            calls, counts, names = kt.record_iteration(args, cfg, part)
+            # In float32 the recorded calls end with the first
+            # micro_chol_inv call of a blocked iteration: the real batch.
+            calls, counts, names = kt.record_iteration(
+                args, cfg, part, cfg.replace(**CONFIGS["blocked_micro"])
+                if dtype == torch.float32 else None)
             both = gather_rows(poses, edges.ab)
             alone = (gather_rows(poses, edges.plan_a.idx),
                      gather_rows(poses, edges.plan_b.idx))
@@ -401,23 +417,34 @@ def phase_kernels(device, peaks, timings: list) -> dict:
             fa, fb = gather_rows_plain(free.node, edges.ab).split(E)
             lin_args = (pa, pb, edges.meas, fa, fb, edges.is_loop.to(dtype),
                         edges.active, 0.5, 0.01)
+            prep = edge_prep(edges, dtype)
+            ix_args = (poses, free.node, prep.ab, prep.meas, prep.loop_f,
+                       prep.active, 0.5, 0.01)
             for robust in ("dcs", "none"):
+                l_i = fused_linearize_se2_indexed(poses, free.node, edges,
+                                                  0.5, 0.01, robust=robust)
                 l_k = fused_linearize_se2(*lin_args, robust=robust)
                 torch.cuda.synchronize()
-                l_p = fused_linearize_se2_plain(*lin_args, robust=robust)
-                errs = {k: max_err(l_k[k], l_p[k]) for k in l_p}
-                bad = {k: v for k, v in errs.items()
-                       if not v[0] <= TOL[dtype] * v[1]}
-                if bad:
+                if not all(torch.equal(l_i[k], l_k[k]) for k in l_k):
                     raise AssertionError(
-                        f"fused_linearize_se2 {label} {name} {robust}: "
-                        f"(err, scale) above {TOL[dtype]} x scale: {bad}")
-                if robust == "dcs":
-                    lin_err = max(e for e, _ in errs.values())
-                    lin_bound = kt.bound(
-                        peaks, dtype, nbytes(*lin_args[:7], *l_k.values()),
-                        LINEARIZE_OPS_PER_EDGE * E)
-                    Haa = l_p["Haa"]
+                        f"fused_linearize_se2 {label} {name} {robust}: the "
+                        "indexed entry differs from the gathered one")
+                for what, got, plain in (
+                        ("indexed", l_i, fused_linearize_se2_indexed_plain(
+                            *ix_args, robust=robust)),
+                        ("gathered", l_k, fused_linearize_se2_plain(
+                            *lin_args, robust=robust))):
+                    errs = {k: max_err(got[k], plain[k]) for k in plain}
+                    bad = {k: v for k, v in errs.items()
+                           if not v[0] <= TOL[dtype] * v[1]}
+                    if bad:
+                        raise AssertionError(
+                            f"fused_linearize_se2 {what} {label} {name} "
+                            f"{robust}: (err, scale) above {TOL[dtype]} x "
+                            f"scale: {bad}")
+                    if robust == "dcs" and what == "indexed":
+                        lin_err = max(e for e, _ in errs.values())
+                        Haa = plain["Haa"]
 
             if dtype == torch.float32:
                 plain = None
@@ -432,9 +459,10 @@ def phase_kernels(device, peaks, timings: list) -> dict:
                             scatter_add_rows_plain(v, p),
                             "scatter_add_rows edges.plan_a v[", None),
                         "fused_linearize_se2": (
-                            lin_err, lambda a=lin_args:
-                            fused_linearize_se2_plain(*a, robust="dcs"),
-                            "fused_linearize_se2 ", lin_bound),
+                            lin_err, lambda a=ix_args:
+                            fused_linearize_se2_indexed_plain(
+                                *a, robust="dcs"),
+                            "fused_linearize_se2_indexed ", None),
                     }
                 timings.append(functools.partial(
                     time_launches, label, calls, names, peaks, plain,
@@ -693,7 +721,7 @@ def main() -> int:
         compiled=_build.build_info["built"])
     for line in _build.build_info["log"].splitlines():
         if line.startswith("==") or "registers" in line or "spill" in line \
-                or "smem" in line:
+                or "smem" in line or "Function properties" in line:
             print("  ptxas:", line.strip())
 
     timings = []

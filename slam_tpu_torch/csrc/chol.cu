@@ -2,41 +2,68 @@
 //
 // Replaces slam_tpu/ops/pallas_chol.py: micro_chol_inv (_kernel).  The TPU
 // kernel puts the batch on the 128 lanes and walks the p columns of every
-// matrix at once, as masked whole-tile reductions.  Here one CTA owns one
-// matrix, whose panel lives in dynamic shared memory, and the p sequential
-// steps are loops inside the CTA between barriers.  The arithmetic is the
-// TPU kernel's (and the plain PyTorch version's), with no fused multiply-add:
+// matrix at once, as masked whole-tile reductions.  Here a matrix goes to
+// one or a few CTAs on their own SMs.  The arithmetic is the TPU kernel's
+// (and the plain PyTorch version's), with no fused multiply-add:
 //   - column j of L is rsqrt(d_jj) times the column of the trailing matrix,
 //     the diagonal included (so a non-SPD panel gives NaN, never a finite
 //     value), followed by the right-looking update of rows and columns > j,
-//     each a rounded product subtracted;
-//   - the inverse X = L^-1 is built row by row by forward substitution,
-//     X[i, c] = (delta_ic - sum_{k<i} L[i, k] X[k, c]) / L[i, i].  Each sum
-//     is a reduction of rounded products in T, as the TPU kernel's masked
-//     tile sum is, in the order of PyTorch's CUDA reduction of the plain
-//     version: four partial sums, the one of lane r taking every k = r mod 4
-//     (only c <= k < i, where X[k, c] can be nonzero), added as
-//     ((s0 + s1) + s2) + s3.
+//     each a rounded product subtracted; element (i, k) takes its updates
+//     in the order j = 0..k-1, so L is bitwise the plain version's;
+//   - the inverse X = L^-1 by forward substitution,
+//     X[i, c] = (delta_ic - sum_{c<=k<i} L[i, k] X[k, c]) / L[i, i], each
+//     sum four partial sums, the one of residue r taking every k = r mod 4
+//     in increasing k, added as ((s0 + s1) + s2) + s3: the order of
+//     PyTorch's CUDA reduction of the plain version.
 // The update is kept unfused on purpose: contracted to FMAs it gives another
 // L, whose inverse's residual max|X L - I| on the trailing M10000 Schur
-// panels was over twice the plain version's.
+// panels was over twice the plain version's.  No tensor cores either: a
+// float32 mma runs in TF32, which the port forbids and whose three digits
+// the residual gate could not take; a float64 DMMA fuses multiply and add.
 // Only the lower triangle of A is read, and the strict upper triangles of
 // both outputs are written as zeros.
 //
-// Shared memory holds one p x (p + 1) tile plus a p-vector: the factor
-// overwrites the panel in place and is written out, then the inverse
-// overwrites the factor row by row (row i of X needs row i of L and the
-// rows of X above it, never a row of L above it).  The odd row stride keeps
-// column reads free of bank conflicts.  That is 66,560 bytes at p = 128 in
-// float32 and 133,120 in float64, so p reaches 240 (float32) or 169
-// (float64) within the 232,448 bytes a block may opt into.
+// Schedule.  The first version spent 2p barrier-separated steps on the
+// factor, each a read-modify-write of the whole trailing triangle in shared
+// memory, and 2p more on a row-by-row inverse.  Here:
+//   - the panel is staged into shared memory with cp.async, then each of the
+//     R x R = 256 threads of the factor holds its elements of the lower
+//     triangle in registers, rows i = a R + tr and columns k = b R + tc
+//     (a >= b, a register tile of TR x TR blocks, p <= TR R); the tile's
+//     block rows and columns < a0 are left out at compile time once j passes
+//     a0 R, so the work per step shrinks with the trailing triangle;
+//   - step j: one barrier after column j of L is in shared memory; every
+//     thread reads the column at its rows and columns and updates its
+//     elements in registers, block column a0 first, so that the threads of
+//     column j + 1 (each keeps its own copy of its columns' diagonals) scale
+//     and store it while the rest of the update goes on.  One barrier per
+//     column, no shared-memory read-modify-write, and the next column's
+//     rsqrt and stores off the barrier-to-barrier path;
+//   - the inverse is right-looking and column-parallel with no CTA-wide
+//     barrier: a warp per column, a lane per row (and the next rows 32
+//     apart); each step finishes one row on its lane, hands X to the warp
+//     with one shuffle and adds the products into the rows below, so the
+//     chain from row to row is a product, the four-way sum, the division
+//     and the shuffle (inverse_column).  Columns c and p - 1 - c go to one
+//     warp, so each warp walks p + 1 rows;
+//   - with several CTAs per matrix (blockIdx.y), each factors the whole
+//     matrix (the same bits, and no cluster barrier per column), then
+//     writes its share of the rows of L and inverts its share of the column
+//     pairs; with 512 threads a CTA has 16 warps for the inverse while the
+//     factor runs on its first 256.  The default launch shape is the
+//     fastest on the card (ops/chol.py, PERF.md).
+// Shared memory: the p x (p + 1) tile (odd row stride: column reads are free
+// of bank conflicts) and a p-vector, 66,560 bytes at p = 128 in float32, so
+// p reaches 240 (float32) or 169 (float64) within the 232,448 bytes a block
+// may opt into, as before; the register tile covers those p with 256
+// threads, and p <= 128 (float32) or 64 (float64) in the 128 registers a
+// thread has with 512.
 //
 // Bound: a matrix needs about 2/3 p^3 flops and p (p + 1) / 2 + 2 p^2
-// elements of traffic, so at the Schur panels (p = 128, 16 to 32 matrices)
-// the card could finish in about a microsecond.  This kernel is latency-
-// bound instead: 2p barrier-separated steps in the factor and 2p in the
-// inverse, with one CTA per matrix leaving most SMs idle.  Making it fast
-// (warpgroup tiles, more matrices per launch) is later work.
+// elements of traffic; at the Schur panels (p = 128, 16 to 32 matrices) the
+// card could finish in under a microsecond.  The kernel is latency-bound:
+// p barrier steps in the factor, whose issue the 256 threads of one SM
+// share, and, in the inverse, column 0's chain of p dependent rows.
 
 #include "common.cuh"
 
@@ -58,99 +85,274 @@ __device__ __forceinline__ double add_rn(double a, double b) {
   return __dadd_rn(a, b);
 }
 
-constexpr int kCholThreads = 256;
-constexpr int kLanesPerColumn = 4;  // partial sums of one inverse entry
-
+// One element from global to shared memory, asynchronously.
 template <typename T>
-__global__ void __launch_bounds__(kCholThreads)
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  const unsigned int d =
+      static_cast<unsigned int>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+               "l"(src), "n"(sizeof(T)));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Column c of X = L^-1 by one warp, right-looking: rows i = c + j, the
+// lane l owning j = l + 32 t.  At step j the lane of row j sums its four
+// partial sums in residue order (residue of the absolute k, hence ROT = c
+// mod 4) and divides; one shuffle hands X[c + j, c] to the warp, and every
+// lane adds its product into the partial sum of residue (c + j) mod 4 of
+// each of its rows below.  So each partial sum takes its terms in
+// increasing k, and the chain from one row to the next is one product, the
+// four-way sum, the division and the shuffle; the other rows' products are
+// off it.  X[i, c] goes to the free upper triangle, transposed, the
+// diagonal of X to xdiag.
+template <typename T, int RL, int ROT>
+__device__ __forceinline__ void inverse_column(T* s, int ld, int p, int c,
+                                               T* xdiag, int lane) {
+  const int n = p - c;
+  T acc[RL][4];
+  T lii[RL];
+  int row[RL];  // offset of L[c + lane + 32 t, c] in the tile
+#pragma unroll
+  for (int t = 0; t < RL; ++t) {
+    const int i = min(c + lane + 32 * t, p - 1);
+    lii[t] = s[i * ld + i];
+    row[t] = i * ld + c;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[t][r] = T(0);
+  }
+#pragma unroll
+  for (int t = 0; t < RL; ++t) {
+    if (32 * t >= n) break;
+    for (int m = 0; m < 8 && 32 * t + 4 * m < n; ++m) {
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr) {
+        const int jj = 4 * m + rr;  // the lane of row j
+        const int j = 32 * t + jj;
+        const bool own = lane == jj;
+        const T sum = add_rn(add_rn(add_rn(acc[t][(4 - ROT) & 3],
+                                           acc[t][(5 - ROT) & 3]),
+                                    acc[t][(6 - ROT) & 3]),
+                             acc[t][(7 - ROT) & 3]);
+        // Other lanes divide 1 by 1, so only the owner's division can take
+        // the slow path.
+        const T num = own ? (j == 0 ? T(1) : T(0)) - sum : T(1);
+        const T x = __shfl_sync(0xffffffffu, num / (own ? lii[t] : T(1)),
+                                jj);
+        if (own && j < n) {
+          if (j == 0) {
+            xdiag[c] = x;
+          } else {
+            s[c * ld + c + j] = x;
+          }
+        }
+#pragma unroll
+        for (int t2 = t; t2 < RL; ++t2) {
+          const int j2 = lane + 32 * t2;
+          if ((t2 > t || lane > jj) && j2 < n) {
+            acc[t2][rr] = add_rn(acc[t2][rr], mul_rn(s[row[t2] + j], x));
+          }
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int RL>
+__device__ __forceinline__ void invert_column(T* s, int ld, int p, int c,
+                                              T* xdiag, int lane) {
+  switch (c & 3) {
+    case 0: inverse_column<T, RL, 0>(s, ld, p, c, xdiag, lane); break;
+    case 1: inverse_column<T, RL, 1>(s, ld, p, c, xdiag, lane); break;
+    case 2: inverse_column<T, RL, 2>(s, ld, p, c, xdiag, lane); break;
+    default: inverse_column<T, RL, 3>(s, ld, p, c, xdiag, lane); break;
+  }
+}
+
+// The factor's thread grid: kR x kR threads, the first kR^2 of the CTA.
+constexpr int kR = 16;
+
+template <typename T, int TR, int NW>
+__global__ void __launch_bounds__(NW * 32)
 micro_chol_inv_kernel(const T* __restrict__ a, T* __restrict__ l_out,
                       T* __restrict__ inv_out, int p) {
   extern __shared__ unsigned char smem_raw[];
   T* s = reinterpret_cast<T*>(smem_raw);  // p rows of stride ld
   const int ld = p + 1;
-  T* vec = s + p * ld;                    // one column or row of scratch
+  T* xdiag = s + p * ld;                  // the diagonal of X
   const int64_t base = static_cast<int64_t>(blockIdx.x) * p * p;
+  const int slice = blockIdx.y;    // the CTA's share of the outputs
+  const int slices = gridDim.y;
+  constexpr int R = kR;
   const int tid = threadIdx.x;
-  const int nt = blockDim.x;
+  const bool fac = tid < R * R;    // a thread of the factor's grid
+  const int tr = tid / R;
+  const int tc = tid - tr * R;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int nwarps = nt >> 5;
-  const int part = tid % kLanesPerColumn;  // this lane's k mod 4
 
-  for (int e = tid; e < p * p; e += nt) {
-    const int i = e / p;
-    const int c = e - i * p;
-    if (c <= i) s[i * ld + c] = a[base + e];
+  for (int i = warp; i < p; i += NW) {
+    const T* src = a + base + static_cast<int64_t>(i) * p;
+    for (int c = lane; c <= i; c += 32) cp_async(s + i * ld + c, src + c);
   }
+  cp_async_wait_all();
   __syncthreads();
 
-  // Right-looking factor: only the lower triangle of s is read or written.
-  for (int j = 0; j < p; ++j) {
-    const T r = d_rsqrt(s[j * ld + j]);
-    for (int i = j + tid; i < p; i += nt) vec[i] = s[i * ld + j] * r;
-    __syncthreads();
-    for (int i = j + tid; i < p; i += nt) s[i * ld + j] = vec[i];
-    for (int i = j + 1 + warp; i < p; i += nwarps) {
-      const T li = vec[i];
-      for (int k = j + 1 + lane; k <= i; k += 32) {
-        s[i * ld + k] = add_rn(s[i * ld + k], -mul_rn(li, vec[k]));
+  T t[TR][TR];  // t[a][b] = element (a R + tr, b R + tc), used for a >= b
+  T dg[TR];     // dg[b] = diagonal element (b R + tc, b R + tc)
+  if (fac) {
+#pragma unroll
+    for (int ta = 0; ta < TR; ++ta) {
+      const int i = ta * R + tr;
+#pragma unroll
+      for (int tb = 0; tb <= ta; ++tb) {
+        const int k = tb * R + tc;
+        t[ta][tb] = (i < p && k <= i) ? s[i * ld + k] : T(0);
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int tb = 0; tb < TR; ++tb) {
+      const int k = tb * R + tc;
+      dg[tb] = k < p ? s[k * ld + k] : T(1);
+    }
   }
-  for (int e = tid; e < p * p; e += nt) {
-    const int i = e / p;
-    const int c = e - i * p;
-    l_out[base + e] = c <= i ? s[i * ld + c] : T(0);
-  }
-  // The loop below overwrites row i only after every thread has read it.
+  __syncthreads();  // column 0 of L overwrites the staged panel
 
-  // Forward substitution, row by row: rows < i of s hold X, rows >= i L.
-  for (int i = 0; i < p; ++i) {
-    const T* li = s + i * ld;
-    const T lii = li[i];
-    for (int c0 = 0; c0 <= i; c0 += nt / kLanesPerColumn) {
-      const int c = c0 + tid / kLanesPerColumn;
-      T acc = T(0);
-      if (c <= i) {
-        for (int k = c + ((part - c) & (kLanesPerColumn - 1)); k < i;
-             k += kLanesPerColumn) {
-          acc = add_rn(acc, mul_rn(li[k], s[k * ld + c]));
+  // A thread reads the column at all its rows and columns, clamped to row
+  // p - 1: the values at rows and columns <= j (or beyond p) only reach
+  // elements that are not live (above the diagonal, beyond p, or already
+  // in L), which are never read again.  No predicate, so every load of a
+  // step issues before the first use.
+  const int last = (p - 1) * ld;
+#pragma unroll
+  for (int a0 = 0; a0 < TR; ++a0) {
+    // The thread's elements of column col (in block column a0) times
+    // rsqrt of its copy of the diagonal, stored as column col of L.
+    auto store_column = [&](int col) {
+      const T r = d_rsqrt(dg[a0]);
+#pragma unroll
+      for (int ta = a0; ta < TR; ++ta) {
+        const int i = ta * R + tr;
+        // Rows < col land in the upper triangle, unused until the inverse.
+        if (i < p) s[i * ld + col] = t[ta][a0] * r;
+      }
+    };
+    for (int jj = 0; jj < R; ++jj) {
+      const int j = a0 * R + jj;
+      if (j >= p) break;
+      if (jj == 0 && fac && tc == 0) store_column(j);
+      __syncthreads();
+      if (fac) {
+        T ci[TR], ck[TR];
+#pragma unroll
+        for (int ta = a0; ta < TR; ++ta) {
+          ci[ta] = s[min((ta * R + tr) * ld, last) + j];
+          ck[ta] = s[min((ta * R + tc) * ld, last) + j];
+        }
+        // Block column a0 first: it holds column j + 1, which its threads
+        // then scale and store while the rest of the update goes on.
+#pragma unroll
+        for (int ta = a0; ta < TR; ++ta) {
+          t[ta][a0] = add_rn(t[ta][a0], -mul_rn(ci[ta], ck[a0]));
+        }
+        dg[a0] = add_rn(dg[a0], -mul_rn(ck[a0], ck[a0]));
+        if (tc == jj + 1 && j + 1 < p) store_column(j + 1);
+#pragma unroll
+        for (int ta = a0 + 1; ta < TR; ++ta) {
+#pragma unroll
+          for (int tb = a0 + 1; tb <= ta; ++tb) {
+            t[ta][tb] = add_rn(t[ta][tb], -mul_rn(ci[ta], ck[tb]));
+          }
+          dg[ta] = add_rn(dg[ta], -mul_rn(ck[ta], ck[ta]));
         }
       }
-      T sum = acc;
-      for (int r = 1; r < kLanesPerColumn; ++r) {
-        sum = add_rn(sum, __shfl_down_sync(0xffffffffu, acc, r));
-      }
-      if (part == 0 && c <= i) {
-        vec[c] = ((c == i ? T(1) : T(0)) - sum) / lii;
-      }
     }
-    __syncthreads();
-    for (int c = tid; c <= i; c += nt) s[i * ld + c] = vec[c];
-    __syncthreads();
   }
-  for (int e = tid; e < p * p; e += nt) {
-    const int i = e / p;
-    const int c = e - i * p;
-    inv_out[base + e] = c <= i ? s[i * ld + c] : T(0);
+  // The last step's barrier made every column of L visible.
+  for (int i = warp * slices + slice; i < p; i += NW * slices) {
+    T* dst = l_out + base + static_cast<int64_t>(i) * p;
+    for (int c = lane; c < p; c += 32) dst[c] = c <= i ? s[i * ld + c] : T(0);
+  }
+
+  // The inverse: a warp per column pair (q, p - 1 - q), the pairs q of
+  // this CTA's residue mod slices.  No barrier until the write-out.
+  constexpr int RL = (TR * R + 31) / 32;
+  for (int q = slice + slices * warp; 2 * q < p; q += slices * NW) {
+    invert_column<T, RL>(s, ld, p, q, xdiag, lane);
+    if (p - 1 - q != q) invert_column<T, RL>(s, ld, p, p - 1 - q, xdiag, lane);
+  }
+  __syncthreads();
+  // The CTA writes the columns of its pairs (slices is a power of two).
+  for (int i = warp; i < p; i += NW) {
+    T* dst = inv_out + base + static_cast<int64_t>(i) * p;
+    for (int c = lane; c < p; c += 32) {
+      if (((c < p - 1 - c ? c : p - 1 - c) & (slices - 1)) != slice) continue;
+      dst[c] = c < i ? s[c * ld + i] : (c == i ? xdiag[c] : T(0));
+    }
   }
 }
 
-template <typename T>
-int micro_chol_inv(const void* a, void* l_out, void* inv_out, int64_t m,
-                   int64_t p, void* stream) {
-  if (m <= 0 || p <= 0) return 0;
+template <typename T, int TR, int NW>
+int launch_chol(const void* a, void* l_out, void* inv_out, int64_t m,
+                int64_t p, int ctas, cudaStream_t stream) {
   const size_t smem = sizeof(T) * static_cast<size_t>(p * (p + 2));
   cudaError_t err = cudaFuncSetAttribute(
-      micro_chol_inv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      micro_chol_inv_kernel<T, TR, NW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  micro_chol_inv_kernel<T><<<static_cast<unsigned int>(m), kCholThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(a), static_cast<T*>(l_out),
-      static_cast<T*>(inv_out), static_cast<int>(p));
+  micro_chol_inv_kernel<T, TR, NW>
+      <<<dim3(static_cast<unsigned int>(m), ctas), NW * 32, smem, stream>>>(
+          static_cast<const T*>(a), static_cast<T*>(l_out),
+          static_cast<T*>(inv_out), static_cast<int>(p));
   return static_cast<int>(cudaGetLastError());
+}
+
+// Largest register tile per type: TR kR >= max_panel (240 in float32, 169
+// in float64).
+template <typename T>
+struct MaxTile;
+template <>
+struct MaxTile<float> {
+  static constexpr int value = 15;
+};
+template <>
+struct MaxTile<double> {
+  static constexpr int value = 11;
+};
+// Largest tile with 512 threads (at most 128 registers a thread): p <= 128
+// in float32, 64 in float64.
+template <typename T>
+struct MaxTile512 {
+  static constexpr int value = sizeof(T) == 4 ? 8 : 4;
+};
+
+// threads: 256 or 512 (the factor runs on the first 256, the inverse on
+// all); ctas: CTAs per matrix (a power of two), each factoring it and
+// writing its share of L and of the inverse's columns.
+template <typename T>
+int micro_chol_inv(const void* a, void* l_out, void* inv_out, int64_t m,
+                   int64_t p, int threads, int ctas, void* stream) {
+  if (m <= 0 || p <= 0) return 0;
+  if (ctas < 1 || ctas > 64 || (ctas & (ctas - 1)) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SLAM_CHOL(TR, NW) \
+  return launch_chol<T, TR, NW>(a, l_out, inv_out, m, p, ctas, s)
+  if (threads == 512) {
+    if (p <= 32) SLAM_CHOL(2, 16);
+    if (p <= 64) SLAM_CHOL(4, 16);
+    if (p <= kR * MaxTile512<T>::value) SLAM_CHOL(MaxTile512<T>::value, 16);
+  } else if (threads == 256) {
+    if (p <= 32) SLAM_CHOL(2, 8);
+    if (p <= 64) SLAM_CHOL(4, 8);
+    if (p <= 128) SLAM_CHOL(8, 8);
+    if (p <= kR * MaxTile<T>::value) SLAM_CHOL(MaxTile<T>::value, 8);
+  }
+#undef SLAM_CHOL
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace slam
@@ -158,13 +360,17 @@ int micro_chol_inv(const void* a, void* l_out, void* inv_out, int64_t m,
 extern "C" {
 
 int slam_micro_chol_inv_f32(const void* a, void* l_out, void* inv_out,
-                            int64_t m, int64_t p, void* stream) {
-  return slam::micro_chol_inv<float>(a, l_out, inv_out, m, p, stream);
+                            int64_t m, int64_t p, int threads, int ctas,
+                            void* stream) {
+  return slam::micro_chol_inv<float>(a, l_out, inv_out, m, p, threads, ctas,
+                                     stream);
 }
 
 int slam_micro_chol_inv_f64(const void* a, void* l_out, void* inv_out,
-                            int64_t m, int64_t p, void* stream) {
-  return slam::micro_chol_inv<double>(a, l_out, inv_out, m, p, stream);
+                            int64_t m, int64_t p, int threads, int ctas,
+                            void* stream) {
+  return slam::micro_chol_inv<double>(a, l_out, inv_out, m, p, threads,
+                                      ctas, stream);
 }
 
 }  // extern "C"

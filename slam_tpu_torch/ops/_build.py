@@ -34,9 +34,10 @@ _INT = ctypes.c_int
 _SIGNATURES = {
     "slam_gather_rows": [_P, _P, _P, _I64, _I64, _P],
     "slam_scatter_add_rows": [_P, ctypes.c_int32, _P, _I64, _P],
-    "slam_linearize_se2": [_P] * 7 + [_F64, _F64, _INT] + [_P] * 10
-    + [_I64, _P],
-    "slam_micro_chol_inv": [_P, _P, _P, _I64, _I64, _P],
+    "slam_linearize_se2": [_P] * 7 + [_F64, _F64, _INT, _P, _I64, _P],
+    "slam_linearize_se2_indexed": [_P] * 6 + [_F64, _F64, _INT, _P, _I64,
+                                              _P],
+    "slam_micro_chol_inv": [_P, _P, _P, _I64, _I64, _INT, _INT, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -4,21 +4,51 @@ Port of ``slam_tpu/ops/pallas_linearize.py::fused_linearize_se2``: the
 whole per-edge chain (residual, gauge-masked Jacobians, DCS with its chain
 rule, Huber weight, weighted H blocks and gradients) in one pass.  The
 CUDA kernel is ``csrc/linearize_se2.cu``; :func:`fused_linearize_se2_plain`
-is the same arithmetic in PyTorch.  The wrapper takes the plain version
-for CPU tensors only; CUDA tensors launch the kernel or raise.
+is the same arithmetic in PyTorch.
+
+Two entries launch the one kernel (and count on
+``fused_linearize_se2.launches``):
+
+- :func:`fused_linearize_se2` takes the gathered endpoints, the JAX
+  kernel's signature (the tests and the comparison with ``slam_tpu``);
+- :func:`fused_linearize_se2_indexed` takes the poses, the free mask and an
+  ``EdgeSet``, and the kernel reads the endpoints itself: the solver's
+  linearisation makes no gather launch.  What depends on the edges alone
+  (the float loop mask, the checks of the edge tensors, their pointers) is
+  prepared once per ``EdgeSet`` (:func:`edge_prep`); a call checks only the
+  poses and the free mask.
+
+Both return views of one field-major buffer, each field contiguous.  The
+wrappers take the plain versions for CPU tensors only; CUDA tensors launch
+the kernel or raise.
 """
 
 from __future__ import annotations
 
+import math
+from collections import OrderedDict
+from typing import NamedTuple
+
 import torch
 
 from slam_tpu_torch.ops import _build
+from slam_tpu_torch.ops.gather import gather_rows_plain
 
 Tensor = torch.Tensor
 
-_BLOCKS = ("Ja", "Jb", "Haa", "Hbb", "Hoff")
-_VECS = ("e", "ga", "gb")
-_SCALARS = ("w", "rho")
+# The output fields in the kernel's buffer order, with their trailing shape.
+_FIELDS = (("e", (3,)), ("Ja", (3, 3)), ("Jb", (3, 3)), ("Haa", (3, 3)),
+           ("Hbb", (3, 3)), ("Hoff", (3, 3)), ("ga", (3,)), ("gb", (3,)),
+           ("w", ()), ("rho", ()))
+_WIDTHS = tuple(math.prod(shape) for _, shape in _FIELDS)
+_VALUES = sum(_WIDTHS)  # 56 per edge
+_OFFSETS = tuple(sum(_WIDTHS[:k]) for k in range(len(_FIELDS)))
+# Row-major strides of each field's (E, *shape) view.
+_STRIDES = tuple(tuple(math.prod(shape[k:]) for k in range(len(shape) + 1))
+                 for _, shape in _FIELDS)
+# EdgeSet preparations kept, most recent last.
+_PREP_CACHE = 16
+_prep: OrderedDict = OrderedDict()
 
 
 def fused_linearize_se2_plain(
@@ -108,6 +138,24 @@ def _check_robust(robust: str) -> None:
         raise ValueError(f"fused linearisation takes none/dcs, not {robust!r}")
 
 
+def _outputs(E: int, dtype, device) -> dict[str, Tensor]:
+    """The ten outputs as views of one field-major buffer (one
+    ``as_strided`` each: half the host time of a split and ten views)."""
+    buf = torch.empty(_VALUES * E, dtype=dtype, device=device)
+    return {name: buf.as_strided((E, *shape), strides, off * E)
+            for (name, shape), strides, off in zip(_FIELDS, _STRIDES,
+                                                   _OFFSETS)}
+
+
+def _launch(name: str, dtype, dev, args, robust, phi, delta, out, E):
+    """One launch into the buffer of ``out`` (``e`` is its first field)."""
+    fn = _build.entry(name, dtype)
+    _build.check(fn(*args, float(phi), float(delta), int(robust == "dcs"),
+                    out["e"].data_ptr(), E, _build.stream_ptr(dev.index)),
+                 "fused_linearize_se2")
+    fused_linearize_se2.launches += 1
+
+
 def fused_linearize_se2(
     pa, pb, meas, free_a, free_b, loop_f, active,
     phi: float, delta: float, robust: str = "none",
@@ -123,27 +171,114 @@ def fused_linearize_se2(
     dtype, dev = pa.dtype, pa.device
     ins = (pa, pb, meas, free_a, free_b, loop_f, active)
     for k, t in enumerate(ins):
-        want = (E, 3) if k < 3 else (E,)
-        if tuple(t.shape) != want or t.dtype != dtype or t.device != dev \
-                or not t.is_contiguous():
-            raise ValueError(
-                f"fused_linearize_se2: input {k} must be contiguous "
-                f"{want} {dtype} on {dev}, got {tuple(t.shape)} {t.dtype} "
-                f"on {t.device}")
-    out = {k: torch.empty((E, 3), dtype=dtype, device=dev) for k in _VECS}
-    out.update({k: torch.empty((E, 3, 3), dtype=dtype, device=dev)
-                for k in _BLOCKS})
-    out.update({k: torch.empty((E,), dtype=dtype, device=dev)
-                for k in _SCALARS})
-    fn = _build.entry("slam_linearize_se2", dtype)
-    order = ("e", "Ja", "Jb", "Haa", "Hbb", "Hoff", "ga", "gb", "w", "rho")
-    _build.check(fn(*(t.data_ptr() for t in ins), float(phi), float(delta),
-                    int(robust == "dcs"),
-                    *(out[k].data_ptr() for k in order), E,
-                    _build.stream_ptr(dev.index)),
-                 "fused_linearize_se2")
-    fused_linearize_se2.launches += 1
+        _check_input(f"input {k}", t, (E, 3) if k < 3 else (E,), dtype, dev)
+    out = _outputs(E, dtype, dev)
+    if E:
+        _launch("slam_linearize_se2", dtype, dev,
+                [t.data_ptr() for t in ins], robust, phi, delta, out, E)
     return out
 
 
 fused_linearize_se2.launches = 0
+
+
+def _check_input(what: str, t: Tensor, shape: tuple, dtype, dev) -> None:
+    if tuple(t.shape) != shape or t.dtype != dtype or t.device != dev \
+            or not t.is_contiguous():
+        raise ValueError(
+            f"fused_linearize_se2: {what} must be contiguous {shape} "
+            f"{dtype} on {dev}, got {tuple(t.shape)} {t.dtype} on "
+            f"{t.device}")
+
+
+class EdgePrep(NamedTuple):
+    """What the indexed linearisation needs of an ``EdgeSet``, checked."""
+
+    ab: Tensor         # (2E,) int32 endpoints a, then endpoints b
+    meas: Tensor       # (E, 3)
+    loop_f: Tensor     # (E,) float loop mask
+    active: Tensor     # (E,)
+    num_nodes: int
+    ptrs: tuple        # data pointers of ab, meas, loop_f, active
+
+
+def edge_prep(edges, dtype) -> EdgePrep:
+    """The preparation of ``edges`` for poses of ``dtype``, built on the
+    first call for these edge tensors and kept while they are among the
+    last few used (an ``EdgeSet`` with another ``active`` is another
+    preparation).  Edge tensors off the CPU are checked for the kernel."""
+    key = (id(edges.ab), id(edges.meas), id(edges.is_loop),
+           id(edges.active), dtype)
+    hit = _prep.get(key)
+    if hit is not None:
+        _prep.move_to_end(key)
+        return hit[1]
+    E, dev = edges.meas.shape[0], edges.meas.device
+    ab = edges.ab
+    loop_f = edges.is_loop.to(dtype)
+    if dev.type != "cpu":
+        _check_edges(edges, loop_f, dtype)
+    prep = EdgePrep(ab=ab, meas=edges.meas, loop_f=loop_f,
+                    active=edges.active, num_nodes=int(edges.num_nodes),
+                    ptrs=() if dev.type == "cpu" else tuple(
+                        t.data_ptr() for t in (ab, edges.meas, loop_f,
+                                               edges.active)))
+    # The entry keeps the keyed tensors alive, so their ids stay theirs.
+    _prep[key] = ((ab, edges.meas, edges.is_loop, edges.active), prep)
+    if len(_prep) > _PREP_CACHE:
+        _prep.popitem(last=False)
+    return prep
+
+
+def _check_edges(edges, loop_f, dtype) -> None:
+    E, dev = edges.meas.shape[0], edges.meas.device
+    ab = edges.ab
+    if ab.dtype != torch.int32 or tuple(ab.shape) != (2 * E,) \
+            or ab.device != dev or not ab.is_contiguous():
+        raise ValueError(f"fused_linearize_se2: ab must be contiguous "
+                         f"({2 * E},) int32 on {dev}, got "
+                         f"{tuple(ab.shape)} {ab.dtype} on {ab.device}")
+    if tuple(edges.is_loop.shape) != (E,):
+        raise ValueError(f"fused_linearize_se2: is_loop must be ({E},), "
+                         f"got {tuple(edges.is_loop.shape)}")
+    _check_input("meas", edges.meas, (E, 3), dtype, dev)
+    _check_input("loop_f", loop_f, (E,), dtype, dev)
+    _check_input("active", edges.active, (E,), dtype, dev)
+
+
+def fused_linearize_se2_indexed_plain(
+    poses, free_node, ab, meas, loop_f, active,
+    phi: float, delta: float, robust: str = "none",
+) -> dict[str, Tensor]:
+    """PyTorch version of the indexed entry: the endpoints gathered with
+    ``index_select``, then :func:`fused_linearize_se2_plain`."""
+    E = meas.shape[0]
+    pa, pb = gather_rows_plain(poses, ab).split(E)
+    fa, fb = gather_rows_plain(free_node, ab).split(E)
+    return fused_linearize_se2_plain(pa, pb, meas, fa, fb, loop_f, active,
+                                     phi, delta, robust)
+
+
+def fused_linearize_se2_indexed(
+    poses, free_node, edges, phi: float, delta: float, robust: str = "none",
+) -> dict[str, Tensor]:
+    """:func:`fused_linearize_se2` of the edges of ``edges`` (an
+    ``EdgeSet``) at ``poses (N, 3)`` with the free mask ``free_node (N,)``;
+    the kernel reads the endpoints itself."""
+    _check_robust(robust)
+    prep = edge_prep(edges, poses.dtype)
+    if poses.device.type == "cpu":
+        return fused_linearize_se2_indexed_plain(
+            poses, free_node, prep.ab, prep.meas, prep.loop_f, prep.active,
+            phi, delta, robust)
+    E, N = prep.meas.shape[0], prep.num_nodes
+    dtype, dev = poses.dtype, prep.meas.device
+    poses, free_node = poses.contiguous(), free_node.contiguous()
+    _check_input("poses", poses, (N, 3), dtype, dev)
+    _check_input("free", free_node, (N,), dtype, dev)
+    out = _outputs(E, dtype, dev)
+    if E:
+        _launch("slam_linearize_se2_indexed", dtype, dev,
+                [poses.data_ptr(), free_node.data_ptr(), *prep.ptrs],
+                robust, phi, delta, out, E)
+    return out

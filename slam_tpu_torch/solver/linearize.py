@@ -2,9 +2,9 @@
 
 Port of ``slam_tpu/solver/linearize.py``.  Robust modes none/dcs (methods
 0/1) run the per-edge chain as the fused ``linearize_se2`` kernel
-(``ops/linearize.py``); sc/sc_varpro run the plain chain below.  The
-endpoint gathers of a call are one ``gather_rows`` launch each, and its
-node sums one ``scatter_add_rows`` launch.
+(``ops/linearize.py``), which reads the edge endpoints itself; sc/sc_varpro
+run the plain chain below, after one ``gather_rows`` launch per source.
+The node sums of a call are one ``scatter_add_rows`` launch.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from slam_tpu_torch.ops.linearize import fused_linearize_se2_indexed
 from slam_tpu_torch.robust import kernels
 from slam_tpu_torch.solver.problem import EdgeSet, FreeMask
 
@@ -61,14 +62,14 @@ def linearize(
     if poses.shape[0] != edges.num_nodes:
         raise ValueError(f"EdgeSet plans cover {edges.num_nodes} nodes, "
                          f"got {poses.shape[0]} poses")
-    pa, pb = edges.gather_ab(poses)
-    fa, fb = edges.gather_ab(free.node)
     if robust in ("none", "dcs") and model.pose_dim == 3:
-        return _linearize_fused(poses, edges, free, pa, pb, fa, fb,
-                                model=model, robust=robust, dcs_phi=dcs_phi,
+        return _linearize_fused(poses, edges, free, model=model,
+                                robust=robust, dcs_phi=dcs_phi,
                                 huber_delta=huber_delta,
                                 fixed_identity_scale=fixed_identity_scale)
 
+    pa, pb = edges.gather_ab(poses)
+    fa, fb = edges.gather_ab(free.node)
     e, Ja, Jb = model.residual_and_jacobians(pa, pb, edges.meas)
     Ja = Ja * fa[:, None, None]
     Jb = Jb * fb[:, None, None]
@@ -129,16 +130,13 @@ def _neutral_switches(E: int, model, like: Tensor) -> dict:
                 Hss=torch.ones((E,), **kw), gs=torch.zeros((E,), **kw))
 
 
-def _linearize_fused(poses, edges, free, pa, pb, fa, fb, *, model, robust,
-                     dcs_phi, huber_delta,
-                     fixed_identity_scale) -> BlockSystem:
-    """The per-edge chain as one ``fused_linearize_se2`` call, node sums
-    through one ``scatter_add_rows`` launch."""
-    from slam_tpu_torch.ops.linearize import fused_linearize_se2
-
-    out = fused_linearize_se2(
-        pa, pb, edges.meas, fa, fb, edges.is_loop.to(poses.dtype),
-        edges.active, dcs_phi, huber_delta, robust=robust)
+def _linearize_fused(poses, edges, free, *, model, robust, dcs_phi,
+                     huber_delta, fixed_identity_scale) -> BlockSystem:
+    """The per-edge chain as one launch of the fused kernel on the poses
+    and the edge endpoints, node sums through one ``scatter_add_rows``
+    launch."""
+    out = fused_linearize_se2_indexed(poses, free.node, edges, dcs_phi,
+                                      huber_delta, robust=robust)
     Hdiag, g = edges.node_sums((out["Haa"], out["Hbb"]),
                                (out["ga"], out["gb"]))
     Hdiag = Hdiag + _fixed_identity(free, model.tangent_dim,

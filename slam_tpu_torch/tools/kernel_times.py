@@ -17,13 +17,16 @@ JSON line per call:
   synchronisation (what the host spends enqueueing);
 - ``library_ms``: the PyTorch call that computes the same function on the
   same inputs (``index_select``; ``index_add_`` of the plan's source rows
-  into an accumulator of the flat segment grid), where there is one;
+  into an accumulator of the flat segment grid; ``cholesky_ex`` and
+  ``solve_triangular`` for ``micro_chol_inv``), where there is one;
 - ``bound_ms``: the least time on this card (:func:`bound`).
 
 A scatter that serves several plans in one launch gets a line for the
-launch and one for each plan launched alone.  The device times are taken
-last, after every other time of the process: a torch.profiler session
-leaves the host-bound calls made after it in the same process slower.
+launch and one for each plan launched alone; a ``micro_chol_inv`` call
+gets one for each launch shape of :data:`CHOL_SHAPES` that takes its
+panels.  The device times are taken last, after every other time of the
+process: a torch.profiler session leaves the host-bound calls made after
+it in the same process slower.
 Needs a CUDA device.
 """
 
@@ -40,6 +43,14 @@ import numpy as np
 import torch
 
 Tensor = torch.Tensor
+
+# (threads per CTA, CTAs per matrix) of micro_chol_inv that are timed
+# besides the default.
+CHOL_SHAPES = ((512, 4), (512, 2), (256, 4), (256, 2), (256, 1))
+
+# Operations per edge of the linearisation kernel: about 200 flops and 9
+# transcendentals (slam_tpu_torch/csrc/linearize_se2.cu).
+LINEARIZE_OPS_PER_EDGE = 209
 
 # Published peaks (dense, no sparsity; float32/float64 outside the tensor
 # cores): memory bytes/s and operations/s by type.
@@ -82,12 +93,14 @@ def _wrappers() -> dict:
     """``name -> function`` of the counted kernel wrappers (and of the
     grouped scatter, where there is one)."""
     from slam_tpu_torch import ops
-    from slam_tpu_torch.ops import gather
+    from slam_tpu_torch.ops import gather, linearize
 
     fns = {fn.__name__: fn for fn in ops._wrappers()}
-    grouped = getattr(gather, "scatter_add_groups", None)
-    if grouped is not None:
-        fns[grouped.__name__] = grouped
+    for mod, name in ((gather, "scatter_add_groups"),
+                      (linearize, "fused_linearize_se2_indexed")):
+        fn = getattr(mod, name, None)
+        if fn is not None:
+            fns[name] = fn
     return fns
 
 
@@ -252,6 +265,46 @@ def scatter_work(v: Tensor, plan) -> tuple[float, float, object]:
             lambda: acc.index_add_(0, idx64, rows))
 
 
+def chol_shapes(A: Tensor) -> list[tuple[int, int]]:
+    """The default launch shape of ``micro_chol_inv`` on ``A``, then the
+    others of :data:`CHOL_SHAPES` that take its panels."""
+    from slam_tpu_torch.ops.chol import DEFAULT_CTAS, default_threads, \
+        max_panel
+
+    p = A.shape[-1]
+    first = (default_threads(p, A.dtype), DEFAULT_CTAS)
+    return [first] + [(t, c) for t, c in CHOL_SHAPES
+                      if (t, c) != first and p <= max_panel(A.dtype, t)]
+
+
+def linearize_work(poses: Tensor, free_node: Tensor, edges,
+                   *_, **__) -> tuple[float, float, None]:
+    """(bytes, operations, no library call) of the indexed linearisation:
+    the poses, the free mask, the endpoints and the edge inputs read once,
+    the 56 values per edge written once."""
+    E = edges.num_edges
+    size = poses.element_size()
+    nbytes = (_size(poses) + _size(free_node) + _size(edges.ab)
+              + E * (3 + 1 + 1 + 56) * size)
+    return float(nbytes), float(LINEARIZE_OPS_PER_EDGE * E), None
+
+
+def chol_work(A: Tensor, *_, **__) -> tuple[float, float, object]:
+    """(bytes, operations, library call) of ``micro_chol_inv``: the lower
+    triangle of A read, L and its inverse written; about 2/3 p^3 flops a
+    matrix; ``cholesky_ex`` then ``solve_triangular`` against the
+    identity."""
+    m, p, _ = A.shape
+    eye = torch.eye(p, dtype=A.dtype, device=A.device).expand(m, -1, -1)
+
+    def library():
+        L, _ = torch.linalg.cholesky_ex(A)
+        return torch.linalg.solve_triangular(L, eye, upper=False)
+
+    return (float(m * (p * (p + 1) // 2 + 2 * p * p) * A.element_size()),
+            float(m * 2 * p ** 3 / 3), library)
+
+
 # ---------------------------------------------------------------------------
 # One problem
 # ---------------------------------------------------------------------------
@@ -267,6 +320,8 @@ def _label(name: str, args: tuple, names: dict) -> str:
     if name == "scatter_add_groups":
         return "scatter_add_groups " + " + ".join(
             f"{nm(p)} v{list(v.shape)}" for v, p in args[0])
+    if name == "fused_linearize_se2_indexed":
+        return f"{name} x{list(args[0].shape)} E={args[2].num_edges}"
     return f"{name} {list(args[0].shape)}"
 
 
@@ -275,6 +330,9 @@ def measure_calls(calls, names: dict, peaks, reps: int) -> tuple[list, list]:
     grouped call) with its host-sensitive times and bound, and the
     function that replays it, for :func:`add_device_times`."""
     wrappers = _wrappers()
+    works = {"gather_rows": gather_work, "scatter_add_rows": scatter_work,
+             "fused_linearize_se2_indexed": linearize_work,
+             "micro_chol_inv": chol_work}
     by_label: dict[str, list] = {}
     for name, args, kw in calls:
         by_label.setdefault(_label(name, args, names), []).append(
@@ -282,24 +340,28 @@ def measure_calls(calls, names: dict, peaks, reps: int) -> tuple[list, list]:
     rows, fns = [], []
     for label, seen in by_label.items():
         name, args, kw = seen[0]
-        fn = functools.partial(wrappers[name], *args, **kw)
         work = None
-        if name == "gather_rows":
-            work = gather_work(*args)
-        elif name == "scatter_add_rows":
-            work = scatter_work(*args)
+        if name in works:
+            work = works[name](*args, **kw)
         elif name == "scatter_add_groups":
-            works = [scatter_work(v, p) for v, p in args[0]]
-            work = (sum(w[0] for w in works), sum(w[1] for w in works), None)
-        row = dict(call=label, calls_per_run=len(seen),
-                   **times(fn, None if work is None else work[2], reps))
-        if work is not None:
-            dtype = (args[0][0][0] if name == "scatter_add_groups"
-                     else args[0]).dtype
-            row["bound_ms"], row["bound_by"] = bound(peaks, dtype, work[0],
-                                                     work[1])
-        rows.append(row)
-        fns.append(fn)
+            each = [scatter_work(v, p) for v, p in args[0]]
+            work = (sum(w[0] for w in each), sum(w[1] for w in each), None)
+        variants = [(label, kw)]
+        if name == "micro_chol_inv":
+            variants = [(f"{label} threads={t} ctas={c}",
+                         dict(kw, threads=t, ctas=c))
+                        for t, c in chol_shapes(args[0])]
+        for call, kw_v in variants:
+            fn = functools.partial(wrappers[name], *args, **kw_v)
+            row = dict(call=call, calls_per_run=len(seen),
+                       **times(fn, None if work is None else work[2], reps))
+            if work is not None:
+                dtype = (args[0][0][0] if name == "scatter_add_groups"
+                         else args[0]).dtype
+                row["bound_ms"], row["bound_by"] = bound(peaks, dtype,
+                                                         work[0], work[1])
+            rows.append(row)
+            fns.append(fn)
         if name == "scatter_add_groups":
             more = measure_calls(
                 [("scatter_add_rows", (v, p), {}) for v, p in args[0]],

@@ -12,8 +12,11 @@ leaves the later host-bound work of its process slower), ``--iters``
 under ``torch.profiler``.  It prints one JSON line per case:
 wall ms per iteration, the summed device time of the kernels (events on
 the CUDA device, so no operator is counted twice) per iteration, their
-ratio (the device's busy share), kernel launches per iteration, and the
-kernels with the most device time.  Needs a CUDA device.
+ratio (the device's busy share), kernel launches per iteration, the
+kernels with the most device time, and the linearisation: host µs per
+call of the solver's ``linearize`` and of the fused kernel's wrapper
+alone (taken with the wall clocks, no sync), and the kernel's device ms
+per iteration.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -49,6 +52,28 @@ def wall_case(args, cfg, part, iters: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / (2 * iters)
 
 
+def linearize_host_us(args, cfg, reps: int = 50) -> dict:
+    """Host µs per call, no sync, of the solver's ``linearize`` and of the
+    fused kernel's wrapper on the initial poses."""
+    from slam_tpu_torch.ops.linearize import fused_linearize_se2_indexed
+    from slam_tpu_torch.solver.linearize import linearize
+    from slam_tpu_torch.solver.models import SE2Model
+    from slam_tpu_torch.tools.kernel_times import host_us
+
+    poses, switches, edges, free = args
+    poses = poses.to(getattr(torch, cfg.dtype))
+    return {
+        "linearize_host_us": host_us(lambda: linearize(
+            poses, switches, edges, free, model=SE2Model, robust=cfg.robust,
+            dcs_phi=cfg.dcs_phi, huber_delta=cfg.huber_delta,
+            sc_prior_lambda=cfg.sc_prior_lambda), reps),
+        "fused_linearize_host_us": host_us(
+            lambda: fused_linearize_se2_indexed(
+                poses, free.node, edges, cfg.dcs_phi, cfg.huber_delta,
+                robust=cfg.robust), reps),
+    }
+
+
 def profile_case(args, cfg, part, iters: int, top: int,
                  wall_ms: float) -> dict:
     from torch.profiler import ProfilerActivity, profile
@@ -68,6 +93,8 @@ def profile_case(args, cfg, part, iters: int, top: int,
         "device_ms_per_iter": device_ms,
         "busy_share": device_ms / wall_ms,
         "kernel_launches_per_iter": sum(k[2] for k in kernels),
+        "linearize_kernel_ms_per_iter": sum(
+            k[1] for k in kernels if "linearize_se2" in k[0]),
         "top": [{"name": n[:60], "ms_per_iter": ms, "calls_per_iter": c}
                 for n, ms, c in kernels[:top]],
     }
@@ -96,10 +123,13 @@ def main(argv=None) -> int:
             for name, kw in CONFIGS.items()]
     walls = [wall_case(lm_args, cfg, part, args.iters)
              for _, _, lm_args, cfg, part in runs]
+    lin = {label: linearize_host_us(lm_args, base)
+           for label, (lm_args, base, _) in cases.items()}
     for (label, name, lm_args, cfg, part), wall_ms in zip(runs, walls):
         out = profile_case(lm_args, cfg, part, args.iters, args.top, wall_ms)
         print(json.dumps({"shape": label, "config": name,
-                          "card": torch.cuda.get_device_name(0), **out}),
+                          "card": torch.cuda.get_device_name(0), **out,
+                          **lin[label]}),
               flush=True)
     return 0
 

@@ -255,3 +255,48 @@ def test_lm_fixed_iters_blocked_micro_float32():
     assert int(t.accepted) == int(j.accepted) > 0
     np.testing.assert_allclose(float(t.cost), float(j.cost), rtol=1e-4)
     assert float(t.cost) < 0.7 * float(t.initial_cost)
+
+
+def test_max_panel_by_launch_shape():
+    """``max_panel`` per dtype and CTA size, and the wrapper raising beyond
+    it (or on a launch shape it does not take) before any launch."""
+    assert tchol.max_panel(torch.float32, 256) == 240
+    assert tchol.max_panel(torch.float64, 256) == 169
+    assert tchol.max_panel(torch.float32, 512) == 128
+    assert tchol.max_panel(torch.float64, 512) == 64
+    assert tchol.default_threads(128, torch.float32) == 512
+    assert tchol.default_threads(128, torch.float64) == 256
+    assert tchol.default_threads(129, torch.float32) == 256
+    before = tchol.micro_chol_inv.launches
+    for shape, dtype, kw in (((2, 129, 129), torch.float32,
+                              dict(threads=512)),
+                             ((2, 65, 65), torch.float64,
+                              dict(threads=512, ctas=1)),
+                             ((2, 241, 241), torch.float32, dict(ctas=4)),
+                             ((2, 8, 8), torch.float32, dict(threads=1024)),
+                             ((2, 8, 8), torch.float32, dict(ctas=3)),
+                             ((2, 8, 8), torch.float64, dict(ctas=8))):
+        with pytest.raises(ValueError):
+            tchol.micro_chol_inv(torch.empty(shape, dtype=dtype,
+                                             device="meta"), **kw)
+    assert tchol.micro_chol_inv.launches == before
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("p", [1, 2, 31, 128, "max"])
+def test_plain_matches_pallas_at_panel_widths(p, dtype):
+    """The plain version against the JAX kernel in interpret mode and
+    NumPy at the widths the kernel must cover, up to its largest p."""
+    if p == "max":
+        p = tchol.max_panel(torch.from_numpy(np.zeros(1, dtype)).dtype)
+    A = _spd_batch(3, p, seed=p, dtype=dtype)
+    jL, jinv = jchol.micro_chol_inv(jnp.asarray(A), interpret=True)
+    tL, tinv = tchol.micro_chol_inv(torch.as_tensor(A))
+    L_ref = np.linalg.cholesky(A.astype(np.float64))
+    inv_ref = np.linalg.inv(L_ref)
+    for t, j, ref in ((tL, jL, L_ref), (tinv, jinv, inv_ref)):
+        atol = ATOL[dtype] * max(1.0, float(np.abs(ref).max()))
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0,
+                                   atol=atol)
+        np.testing.assert_allclose(t.numpy(), ref, rtol=0, atol=atol)
+        assert np.all(_strict_upper(t.numpy(), p) == 0.0)
