@@ -25,8 +25,7 @@ the script exits non-zero and prints no result line):
      diagonal panel of the equilibrated Schur interiors of INTEL+50 and
      M10000+50 at their initial poses, lambda = 1e-4; L bitwise equal to
      the plain version's, the inverse within TOL (SPD) or RESID_FACTOR
-     (real panels), and every launch shape (threads per CTA, CTAs per
-     matrix) bitwise equal to the default;
+     (real panels);
 3. the main path through the CLI, ``INTEL 50 1 --seed 42`` (auto init,
    auto solver = Schur, rescue on, float32): the output files, the launch
    count of every kernel during that run, and the ATE against the golden
@@ -49,8 +48,8 @@ the script exits non-zero and prints no result line):
    its process slower (``[kernels]`` lines, float32; and
    ``micro_chol_inv`` in float64): per launch and per plan of the
    recorded iterations (``micro_chol_inv`` on the real (16, 128, 128)
-   INTEL and (32, 128, 128) M10000 batches), and on the SPD batches,
-   under each launch shape, the kernel (``ms``: CUDA
+   INTEL and (32, 128, 128) M10000 batches), and on the SPD batches:
+   the kernel (``ms``: CUDA
    events around 50 back-to-back calls; ``device_ms``: its device events
    under torch.profiler; ``host_us``: host time per call with no sync),
    the plain version, the library call that computes the same function,
@@ -193,7 +192,6 @@ def check_chol(label: str, A, dtype_name: str, gate: str) -> float:
     tolerance) or "residual" (against the plain version's residuals).
     Returns the max abs error of L and inv against the plain version."""
     from slam_tpu_torch.ops.chol import micro_chol_inv, micro_chol_inv_plain
-    from slam_tpu_torch.tools.kernel_times import chol_shapes
 
     Lk, ik = micro_chol_inv(A)
     torch.cuda.synchronize()
@@ -202,13 +200,6 @@ def check_chol(label: str, A, dtype_name: str, gate: str) -> float:
     if not torch.equal(Lk, Lp):
         raise AssertionError(f"micro_chol_inv {label} {dtype_name}: L not "
                              "bitwise equal to the plain version's")
-    for threads, ctas in chol_shapes(A)[1:]:
-        Lt, it = micro_chol_inv(A, threads=threads, ctas=ctas)
-        torch.cuda.synchronize()
-        if not (torch.equal(Lt, Lk) and torch.equal(it, ik)):
-            raise AssertionError(
-                f"micro_chol_inv {label} {dtype_name}: {threads} threads x "
-                f"{ctas} CTAs differ from the default")
     upper = torch.triu(torch.ones(p, p, dtype=torch.bool, device=A.device),
                        1)
     if not (bool((Lk[:, upper] == 0).all()) and bool((ik[:, upper] == 0)
@@ -316,23 +307,18 @@ def time_launches(label: str, calls, names, peaks, plain, summary):
 
 
 def time_chol(A, err: float, peaks, summary):
-    """Times of ``micro_chol_inv`` on one SPD batch, under each launch
-    shape, against its plain version and the library pair; with
-    ``summary``, the result line's (the default shape).  Returns ``(rows,
-    fns, report)`` for :func:`phase_kernel_times`."""
+    """Times of ``micro_chol_inv`` on one SPD batch against its plain
+    version and the library pair; with ``summary``, the result line's.
+    Returns ``(rows, fns, report)`` for :func:`phase_kernel_times`."""
     from slam_tpu_torch.ops.chol import micro_chol_inv, micro_chol_inv_plain
     from slam_tpu_torch.tools import kernel_times as kt
 
     m = A.shape[0]
     nbytes, ops, library = kt.chol_work(A)
-    shapes = {f"{t}x{c}": functools.partial(micro_chol_inv, A, threads=t,
-                                            ctas=c)
-              for t, c in kt.chol_shapes(A)[1:]}
-    t = in_turns({"kernel": lambda: micro_chol_inv(A), **shapes,
+    t = in_turns({"kernel": lambda: micro_chol_inv(A),
                   "plain": lambda: micro_chol_inv_plain(A),
                   "library": library},
-                 {"kernel": REPS, **{k: REPS for k in shapes}, "plain": 3,
-                  "library": REPS})
+                 {"kernel": REPS, "plain": 3, "library": REPS})
     b_ms, b_by = kt.bound(peaks, A.dtype, nbytes, ops)
     row = dict(max_abs_err=err, ms=t["kernel"],
                host_us=kt.host_us(lambda: micro_chol_inv(A), REPS),
@@ -343,7 +329,6 @@ def time_chol(A, err: float, peaks, summary):
         log("kernels", kernel="micro_chol_inv", shape=f"spd{m}",
             dtype=str(A.dtype).replace("torch.", ""), max_abs_err=err,
             ms=round(row["ms"], 5),
-            ms_threads_x_ctas=json.dumps({k: round(t[k], 5) for k in shapes}),
             device_ms=round(row["device_ms"], 5),
             host_us=round(row["host_us"], 2),
             plain_ms=round(row["plain_ms"], 5),
@@ -378,9 +363,9 @@ def phase_kernels(device, peaks, timings: list) -> dict:
     of 16 panels for ``micro_chol_inv``)."""
     from slam_tpu_torch.ops.gather import gather_rows, gather_rows_plain, \
         scatter_add_rows_plain
-    from slam_tpu_torch.ops.linearize import edge_prep, \
-        fused_linearize_se2, fused_linearize_se2_indexed, \
-        fused_linearize_se2_indexed_plain, fused_linearize_se2_plain
+    from slam_tpu_torch.ops.linearize import fused_linearize_se2, \
+        fused_linearize_se2_indexed, fused_linearize_se2_indexed_plain, \
+        fused_linearize_se2_plain
     from slam_tpu_torch.tools import kernel_times as kt
     from slam_tpu_torch.tools.problems import CONFIGS, intel50, m10000
 
@@ -415,11 +400,10 @@ def phase_kernels(device, peaks, timings: list) -> dict:
 
             pa, pb = gather_rows_plain(poses, edges.ab).split(E)
             fa, fb = gather_rows_plain(free.node, edges.ab).split(E)
-            lin_args = (pa, pb, edges.meas, fa, fb, edges.is_loop.to(dtype),
+            lin_args = (pa, pb, edges.meas, fa, fb, edges.loop_f,
                         edges.active, 0.5, 0.01)
-            prep = edge_prep(edges, dtype)
-            ix_args = (poses, free.node, prep.ab, prep.meas, prep.loop_f,
-                       prep.active, 0.5, 0.01)
+            ix_args = (poses, free.node, edges.ab, edges.meas, edges.loop_f,
+                       edges.active, 0.5, 0.01)
             for robust in ("dcs", "none"):
                 l_i = fused_linearize_se2_indexed(poses, free.node, edges,
                                                   0.5, 0.01, robust=robust)

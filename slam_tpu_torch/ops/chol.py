@@ -2,10 +2,11 @@
 
 Port of ``slam_tpu/ops/pallas_chol.py::micro_chol_inv``: for ``A`` of shape
 ``(M, p, p)`` (SPD panels) it returns the lower Cholesky factor ``L`` and
-``L^-1`` in one launch.  The CUDA kernel is ``csrc/chol.cu``: several CTAs
-per matrix (:data:`CTAS`), each with the factor in per-thread register
-tiles and one barrier per column, then a right-looking inverse, a warp per
-column, with no CTA-wide barrier.  :func:`micro_chol_inv_plain` is the same
+``L^-1`` in one launch.  The CUDA kernel is ``csrc/chol.cu``: up to four
+CTAs per matrix, each with the factor in per-thread register tiles and one
+barrier per column, then a right-looking inverse, a warp per column, with
+no CTA-wide barrier; the kernel picks its launch shape from ``p``, the
+dtype and the batch.  :func:`micro_chol_inv_plain` is the same
 column loop in PyTorch.  Both follow the TPU kernel's arithmetic: the pivot
 is ``rsqrt(d_jj)`` times the column, so a non-SPD panel gives NaN; the
 inverse is forward substitution, each entry's sum in four partial sums;
@@ -35,23 +36,11 @@ Tensor = torch.Tensor
 _SMEM_OPTIN = 232448
 
 
-#: Threads per CTA: the factor runs on a 16 x 16 grid of them, the inverse
-#: on all (512 holds ``p`` up to 128 in float32, 64 in float64).
-THREADS = (256, 512)
-#: CTAs per matrix the kernel takes (each factors the matrix and writes its
-#: share of the outputs).
-CTAS = (1, 2, 4)
-
-
-def max_panel(dtype, threads: int = 256) -> int:
+def max_panel(dtype) -> int:
     """Largest ``p`` the kernel takes: one ``p x (p+1)`` tile plus a
-    ``p``-vector of ``dtype`` in shared memory, ``p (p+2)`` elements (the
-    register tiles of ``csrc/chol.cu`` cover that much with 256 threads;
-    with 512, a thread's 128 registers hold the tile of 128 in float32, of
-    64 in float64)."""
+    ``p``-vector of ``dtype`` in shared memory, ``p (p+2)`` elements."""
     size = torch.finfo(dtype).bits // 8
-    smem = math.isqrt(_SMEM_OPTIN // size + 1) - 1
-    return smem if threads == 256 else min(smem, 512 // size)
+    return math.isqrt(_SMEM_OPTIN // size + 1) - 1
 
 
 def micro_chol_inv_plain(A: Tensor) -> tuple[Tensor, Tensor]:
@@ -71,41 +60,21 @@ def micro_chol_inv_plain(A: Tensor) -> tuple[Tensor, Tensor]:
     return L, X
 
 
-def default_threads(p: int, dtype) -> int:
-    """512 threads a CTA where the panel fits them (:func:`max_panel`),
-    else 256: the inverse gets a warp per column pair at p = 128 with
-    :data:`DEFAULT_CTAS` CTAs per matrix."""
-    return 512 if p <= max_panel(dtype, 512) else 256
-
-
-#: CTAs per matrix by default.
-DEFAULT_CTAS = 4
-
-
-def micro_chol_inv(A: Tensor, threads: int | None = None,
-                   ctas: int = DEFAULT_CTAS) -> tuple[Tensor, Tensor]:
+def micro_chol_inv(A: Tensor) -> tuple[Tensor, Tensor]:
     """Cholesky factor and its inverse of ``A (M, p, p)``, in one launch on
-    a CUDA tensor, with ``ctas`` CTAs of ``threads`` per matrix
-    (:data:`CTAS`, :data:`THREADS`; ``threads=None`` takes
-    :func:`default_threads`).  Only the lower triangle of ``A`` is read."""
+    a CUDA tensor.  Only the lower triangle of ``A`` is read."""
     if A.dim() != 3 or A.shape[1] != A.shape[2]:
         raise ValueError(f"micro_chol_inv: need (M, p, p), got "
                          f"{tuple(A.shape)}")
-    if threads is None:
-        threads = default_threads(A.shape[-1], A.dtype)
-    if threads not in THREADS or ctas not in CTAS:
-        raise ValueError(f"micro_chol_inv: threads must be one of {THREADS} "
-                         f"and ctas one of {CTAS}")
     if A.device.type == "cpu":
         return micro_chol_inv_plain(A)
     if A.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"micro_chol_inv: float32/float64 only, got "
                         f"{A.dtype}")
     M, p, _ = A.shape
-    if p > max_panel(A.dtype, threads):
+    if p > max_panel(A.dtype):
         raise ValueError(f"micro_chol_inv: p={p} exceeds the kernel's "
-                         f"{max_panel(A.dtype, threads)} for {A.dtype} "
-                         f"with {threads} threads")
+                         f"{max_panel(A.dtype)} for {A.dtype}")
     A = A.contiguous()
     L = torch.empty_like(A)
     inv = torch.empty_like(A)
@@ -113,8 +82,7 @@ def micro_chol_inv(A: Tensor, threads: int | None = None,
         return L, inv
     fn = _build.entry("slam_micro_chol_inv", A.dtype)
     _build.check(fn(A.data_ptr(), L.data_ptr(), inv.data_ptr(), M, p,
-                    threads, ctas, _build.stream_ptr(A.get_device())),
-                 "micro_chol_inv")
+                    _build.stream_ptr(A.get_device())), "micro_chol_inv")
     micro_chol_inv.launches += 1
     return L, inv
 

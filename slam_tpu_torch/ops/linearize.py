@@ -13,10 +13,9 @@ Two entries launch the one kernel (and count on
   kernel's signature (the tests and the comparison with ``slam_tpu``);
 - :func:`fused_linearize_se2_indexed` takes the poses, the free mask and an
   ``EdgeSet``, and the kernel reads the endpoints itself: the solver's
-  linearisation makes no gather launch.  What depends on the edges alone
-  (the float loop mask, the checks of the edge tensors, their pointers) is
-  prepared once per ``EdgeSet`` (:func:`edge_prep`); a call checks only the
-  poses and the free mask.
+  linearisation makes no gather launch.  The ``EdgeSet`` holds the float
+  loop mask the kernel reads (``loop_f``, made with it), so a call converts
+  nothing; it checks every tensor the kernel reads.
 
 Both return views of one field-major buffer, each field contiguous.  The
 wrappers take the plain versions for CPU tensors only; CUDA tensors launch
@@ -26,8 +25,6 @@ the kernel or raise.
 from __future__ import annotations
 
 import math
-from collections import OrderedDict
-from typing import NamedTuple
 
 import torch
 
@@ -46,9 +43,6 @@ _OFFSETS = tuple(sum(_WIDTHS[:k]) for k in range(len(_FIELDS)))
 # Row-major strides of each field's (E, *shape) view.
 _STRIDES = tuple(tuple(math.prod(shape[k:]) for k in range(len(shape) + 1))
                  for _, shape in _FIELDS)
-# EdgeSet preparations kept, most recent last.
-_PREP_CACHE = 16
-_prep: OrderedDict = OrderedDict()
 
 
 def fused_linearize_se2_plain(
@@ -191,61 +185,6 @@ def _check_input(what: str, t: Tensor, shape: tuple, dtype, dev) -> None:
             f"{t.device}")
 
 
-class EdgePrep(NamedTuple):
-    """What the indexed linearisation needs of an ``EdgeSet``, checked."""
-
-    ab: Tensor         # (2E,) int32 endpoints a, then endpoints b
-    meas: Tensor       # (E, 3)
-    loop_f: Tensor     # (E,) float loop mask
-    active: Tensor     # (E,)
-    num_nodes: int
-    ptrs: tuple        # data pointers of ab, meas, loop_f, active
-
-
-def edge_prep(edges, dtype) -> EdgePrep:
-    """The preparation of ``edges`` for poses of ``dtype``, built on the
-    first call for these edge tensors and kept while they are among the
-    last few used (an ``EdgeSet`` with another ``active`` is another
-    preparation).  Edge tensors off the CPU are checked for the kernel."""
-    key = (id(edges.ab), id(edges.meas), id(edges.is_loop),
-           id(edges.active), dtype)
-    hit = _prep.get(key)
-    if hit is not None:
-        _prep.move_to_end(key)
-        return hit[1]
-    E, dev = edges.meas.shape[0], edges.meas.device
-    ab = edges.ab
-    loop_f = edges.is_loop.to(dtype)
-    if dev.type != "cpu":
-        _check_edges(edges, loop_f, dtype)
-    prep = EdgePrep(ab=ab, meas=edges.meas, loop_f=loop_f,
-                    active=edges.active, num_nodes=int(edges.num_nodes),
-                    ptrs=() if dev.type == "cpu" else tuple(
-                        t.data_ptr() for t in (ab, edges.meas, loop_f,
-                                               edges.active)))
-    # The entry keeps the keyed tensors alive, so their ids stay theirs.
-    _prep[key] = ((ab, edges.meas, edges.is_loop, edges.active), prep)
-    if len(_prep) > _PREP_CACHE:
-        _prep.popitem(last=False)
-    return prep
-
-
-def _check_edges(edges, loop_f, dtype) -> None:
-    E, dev = edges.meas.shape[0], edges.meas.device
-    ab = edges.ab
-    if ab.dtype != torch.int32 or tuple(ab.shape) != (2 * E,) \
-            or ab.device != dev or not ab.is_contiguous():
-        raise ValueError(f"fused_linearize_se2: ab must be contiguous "
-                         f"({2 * E},) int32 on {dev}, got "
-                         f"{tuple(ab.shape)} {ab.dtype} on {ab.device}")
-    if tuple(edges.is_loop.shape) != (E,):
-        raise ValueError(f"fused_linearize_se2: is_loop must be ({E},), "
-                         f"got {tuple(edges.is_loop.shape)}")
-    _check_input("meas", edges.meas, (E, 3), dtype, dev)
-    _check_input("loop_f", loop_f, (E,), dtype, dev)
-    _check_input("active", edges.active, (E,), dtype, dev)
-
-
 def fused_linearize_se2_indexed_plain(
     poses, free_node, ab, meas, loop_f, active,
     phi: float, delta: float, robust: str = "none",
@@ -266,19 +205,23 @@ def fused_linearize_se2_indexed(
     ``EdgeSet``) at ``poses (N, 3)`` with the free mask ``free_node (N,)``;
     the kernel reads the endpoints itself."""
     _check_robust(robust)
-    prep = edge_prep(edges, poses.dtype)
     if poses.device.type == "cpu":
         return fused_linearize_se2_indexed_plain(
-            poses, free_node, prep.ab, prep.meas, prep.loop_f, prep.active,
-            phi, delta, robust)
-    E, N = prep.meas.shape[0], prep.num_nodes
-    dtype, dev = poses.dtype, prep.meas.device
-    poses, free_node = poses.contiguous(), free_node.contiguous()
-    _check_input("poses", poses, (N, 3), dtype, dev)
-    _check_input("free", free_node, (N,), dtype, dev)
+            poses, free_node, edges.ab, edges.meas, edges.loop_f,
+            edges.active, phi, delta, robust)
+    E, N = edges.num_edges, edges.num_nodes
+    dtype, dev = poses.dtype, poses.device
+    ins = {"poses": (poses.contiguous(), (N, 3), dtype),
+           "free": (free_node.contiguous(), (N,), dtype),
+           "ab": (edges.ab, (2 * E,), torch.int32),
+           "meas": (edges.meas, (E, 3), dtype),
+           "loop_f": (edges.loop_f, (E,), dtype),
+           "active": (edges.active, (E,), dtype)}
+    for what, (t, shape, t_dtype) in ins.items():
+        _check_input(what, t, shape, t_dtype, dev)
     out = _outputs(E, dtype, dev)
     if E:
         _launch("slam_linearize_se2_indexed", dtype, dev,
-                [poses.data_ptr(), free_node.data_ptr(), *prep.ptrs],
-                robust, phi, delta, out, E)
+                [t.data_ptr() for t, _, _ in ins.values()], robust, phi,
+                delta, out, E)
     return out

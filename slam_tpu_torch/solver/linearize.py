@@ -73,7 +73,7 @@ def linearize(
     e, Ja, Jb = model.residual_and_jacobians(pa, pb, edges.meas)
     Ja = Ja * fa[:, None, None]
     Jb = Jb * fb[:, None, None]
-    loop_f = edges.is_loop.to(poses.dtype)
+    loop_f = edges.loop_f.to(poses.dtype)
     m = loop_f[:, None]
     mm = loop_f[:, None, None]
     Js = torch.zeros_like(e)
@@ -163,7 +163,7 @@ def cost_only(
 ) -> Tensor:
     """Objective value only (for LM step accept/reject)."""
     e = model.residual(*edges.gather_ab(poses), edges.meas)
-    loop_f = edges.is_loop.to(poses.dtype)
+    loop_f = edges.loop_f.to(poses.dtype)
     if robust == "dcs":
         psi = kernels.dcs_psi(e, dcs_phi, dims=model.dcs_dims)
         e = (loop_f * psi + (1 - loop_f))[:, None] * e
@@ -190,5 +190,5 @@ def loop_psi(poses: Tensor, edges: EdgeSet, model, phi: float) -> Tensor:
 def loop_psi_mean(poses: Tensor, edges: EdgeSet, model, phi: float) -> Tensor:
     """Mean DCS psi over live loop edges at ``poses``."""
     psi = loop_psi(poses, edges, model, phi)
-    live = edges.active * edges.is_loop.to(poses.dtype)
+    live = edges.active * edges.loop_f.to(poses.dtype)
     return torch.sum(live * psi) / torch.clamp(torch.sum(live), min=1.0)

@@ -8,7 +8,9 @@ one launch for both endpoints, and every node sum through the
 ``scatter_add_rows`` kernel, one launch for all of a linearisation's
 sums.  ``active`` is the
 per-edge weight that pads, masks and windows without new plans:
-``edges._replace(active=mask)`` keeps them.
+``edges._replace(active=mask)`` keeps them.  The loop mask is held as
+``loop_f``, in the dtype of ``meas``, the form every robust kernel reads;
+``is_loop`` is its boolean view.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ Tensor = torch.Tensor
 class EdgeSet(NamedTuple):
     ij: Tensor          # (E, 2) int32 endpoints
     meas: Tensor        # (E, 3) measured relative pose
-    is_loop: Tensor     # (E,) bool: closure or bogus (robustified edges)
+    loop_f: Tensor      # (E,) 1.0 closure or bogus (robustified edges), 0.0
     active: Tensor      # (E,) float: 1 live, 0 padded/masked out
     info: Tensor        # (E, 6) information entries
     plan_a: SegmentPlan  # endpoint a: gather index + scatter plan
@@ -47,6 +49,11 @@ class EdgeSet(NamedTuple):
     @property
     def num_nodes(self) -> int:
         return self.plan_a.n
+
+    @property
+    def is_loop(self) -> Tensor:
+        """(E,) bool: the loop mask."""
+        return self.loop_f != 0
 
     def gather_ab(self, x: Tensor) -> tuple[Tensor, Tensor]:
         """``(x[a], x[b])`` through one ``gather_rows`` launch."""
@@ -83,7 +90,7 @@ def edge_set_from_arrays(ij, meas, is_loop, active, info, num_nodes: int,
     return EdgeSet(
         ij=torch.as_tensor(ij.astype(np.int32), device=device),
         meas=f(meas),
-        is_loop=torch.tensor(np.asarray(is_loop, bool), device=device),
+        loop_f=f(np.asarray(is_loop, bool)),
         active=f(active),
         info=f(info),
         plan_a=segment_plan(ij[:, 0], num_nodes, device=device),

@@ -9,10 +9,11 @@ repo itself) as the first argument: it imports ``slam_tpu_torch`` and
 over a range of p, up to the kernel's largest, and the first and trailing
 real Schur panels of INTEL+50 and M10000+50 (``chip_smoke.real_panels``),
 float32 and float64 -- and saves them with the tree's outputs under the
-prefix OUT.  ``run`` loads the inputs saved under OUT, computes the tree's
-outputs under every launch shape it has, and prints the keys whose L or
-inverse differ from the outputs saved under OUT.  Both print the CUDA-event
-ms of each call at p = 128.  Needs a CUDA device.
+path prefix OUT.  ``run`` loads the inputs saved under OUT, computes the
+tree's outputs and prints the keys whose L or inverse differ from the
+outputs saved under OUT (its own under OUT2).  Both print the CUDA-event
+ms of each call at p = 128.  Give each tree its own prefix inside its
+checkout (the ``.pt`` files reach tens of MB).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -66,30 +67,20 @@ def main(argv: list[str]) -> int:
         torch.save(make_inputs(dev, chol), out + ".in.pt")
     ref = out if mode == "make" else argv[3]
     inputs = torch.load(ref + ".in.pt")
-    shapes = [None]  # the default, then every shape the tree takes
-    if hasattr(chol, "THREADS"):
-        shapes += [(t, c) for t in chol.THREADS for c in chol.CTAS]
     res, times = {}, {}
     for key, A in inputs.items():
         A = A.to(dev)
-        for shape in shapes:
-            kw = {} if shape is None else dict(threads=shape[0],
-                                                ctas=shape[1])
-            if shape is not None and \
-                    A.shape[-1] > chol.max_panel(A.dtype, shape[0]):
-                continue
-            L, X = chol.micro_chol_inv(A, **kw)
-            res[key, shape] = (L.cpu(), X.cpu())
-            if A.shape[-1] == 128:
-                times[f"{key} {shape}"] = round(cuda_ms(
-                    lambda: chol.micro_chol_inv(A, **kw), 50), 5)
+        L, X = chol.micro_chol_inv(A)
+        res[key] = (L.cpu(), X.cpu())
+        if A.shape[-1] == 128:
+            times[key] = round(cuda_ms(lambda: chol.micro_chol_inv(A), 50), 5)
     torch.save(res, out + ".out.pt")
     print(json.dumps({"tree": tree, "ms": times}))
     if mode == "run":
         want = torch.load(ref + ".out.pt")
-        differ = [f"{key} {shape}" for (key, shape), (L, X) in res.items()
-                  if not (torch.equal(L, want[key, None][0])
-                          and torch.equal(X, want[key, None][1]))]
+        differ = [key for key, (L, X) in res.items()
+                  if not (torch.equal(L, want[key][0])
+                          and torch.equal(X, want[key][1]))]
         print(json.dumps({"compared": len(res), "differ": differ}))
         return 1 if differ else 0
     return 0

@@ -22,11 +22,9 @@ JSON line per call:
 - ``bound_ms``: the least time on this card (:func:`bound`).
 
 A scatter that serves several plans in one launch gets a line for the
-launch and one for each plan launched alone; a ``micro_chol_inv`` call
-gets one for each launch shape of :data:`CHOL_SHAPES` that takes its
-panels.  The device times are taken last, after every other time of the
-process: a torch.profiler session leaves the host-bound calls made after
-it in the same process slower.
+launch and one for each plan launched alone.  The device times are taken
+last, after every other time of the process: a torch.profiler session
+leaves the host-bound calls made after it in the same process slower.
 Needs a CUDA device.
 """
 
@@ -43,10 +41,6 @@ import numpy as np
 import torch
 
 Tensor = torch.Tensor
-
-# (threads per CTA, CTAs per matrix) of micro_chol_inv that are timed
-# besides the default.
-CHOL_SHAPES = ((512, 4), (512, 2), (256, 4), (256, 2), (256, 1))
 
 # Operations per edge of the linearisation kernel: about 200 flops and 9
 # transcendentals (slam_tpu_torch/csrc/linearize_se2.cu).
@@ -265,18 +259,6 @@ def scatter_work(v: Tensor, plan) -> tuple[float, float, object]:
             lambda: acc.index_add_(0, idx64, rows))
 
 
-def chol_shapes(A: Tensor) -> list[tuple[int, int]]:
-    """The default launch shape of ``micro_chol_inv`` on ``A``, then the
-    others of :data:`CHOL_SHAPES` that take its panels."""
-    from slam_tpu_torch.ops.chol import DEFAULT_CTAS, default_threads, \
-        max_panel
-
-    p = A.shape[-1]
-    first = (default_threads(p, A.dtype), DEFAULT_CTAS)
-    return [first] + [(t, c) for t, c in CHOL_SHAPES
-                      if (t, c) != first and p <= max_panel(A.dtype, t)]
-
-
 def linearize_work(poses: Tensor, free_node: Tensor, edges,
                    *_, **__) -> tuple[float, float, None]:
     """(bytes, operations, no library call) of the indexed linearisation:
@@ -346,22 +328,16 @@ def measure_calls(calls, names: dict, peaks, reps: int) -> tuple[list, list]:
         elif name == "scatter_add_groups":
             each = [scatter_work(v, p) for v, p in args[0]]
             work = (sum(w[0] for w in each), sum(w[1] for w in each), None)
-        variants = [(label, kw)]
-        if name == "micro_chol_inv":
-            variants = [(f"{label} threads={t} ctas={c}",
-                         dict(kw, threads=t, ctas=c))
-                        for t, c in chol_shapes(args[0])]
-        for call, kw_v in variants:
-            fn = functools.partial(wrappers[name], *args, **kw_v)
-            row = dict(call=call, calls_per_run=len(seen),
-                       **times(fn, None if work is None else work[2], reps))
-            if work is not None:
-                dtype = (args[0][0][0] if name == "scatter_add_groups"
-                         else args[0]).dtype
-                row["bound_ms"], row["bound_by"] = bound(peaks, dtype,
-                                                         work[0], work[1])
-            rows.append(row)
-            fns.append(fn)
+        fn = functools.partial(wrappers[name], *args, **kw)
+        row = dict(call=label, calls_per_run=len(seen),
+                   **times(fn, None if work is None else work[2], reps))
+        if work is not None:
+            dtype = (args[0][0][0] if name == "scatter_add_groups"
+                     else args[0]).dtype
+            row["bound_ms"], row["bound_by"] = bound(peaks, dtype, work[0],
+                                                     work[1])
+        rows.append(row)
+        fns.append(fn)
         if name == "scatter_add_groups":
             more = measure_calls(
                 [("scatter_add_rows", (v, p), {}) for v, p in args[0]],

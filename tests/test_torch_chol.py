@@ -258,27 +258,22 @@ def test_lm_fixed_iters_blocked_micro_float32():
 
 
 def test_max_panel_by_launch_shape():
-    """``max_panel`` per dtype and CTA size, and the wrapper raising beyond
-    it (or on a launch shape it does not take) before any launch."""
-    assert tchol.max_panel(torch.float32, 256) == 240
-    assert tchol.max_panel(torch.float64, 256) == 169
-    assert tchol.max_panel(torch.float32, 512) == 128
-    assert tchol.max_panel(torch.float64, 512) == 64
-    assert tchol.default_threads(128, torch.float32) == 512
-    assert tchol.default_threads(128, torch.float64) == 256
-    assert tchol.default_threads(129, torch.float32) == 256
+    """``max_panel`` per dtype is the largest ``p`` whose tile and vector,
+    ``p (p + 2)`` elements, fit the shared memory a block may opt into; the
+    kernel picks its launch shape itself, and the wrapper raises beyond
+    that ``p`` before any launch."""
+    for dtype, want in ((torch.float32, 240), (torch.float64, 169)):
+        p, size = tchol.max_panel(dtype), torch.finfo(dtype).bits // 8
+        assert p == want
+        assert p * (p + 2) * size <= tchol._SMEM_OPTIN \
+            < (p + 1) * (p + 3) * size
     before = tchol.micro_chol_inv.launches
-    for shape, dtype, kw in (((2, 129, 129), torch.float32,
-                              dict(threads=512)),
-                             ((2, 65, 65), torch.float64,
-                              dict(threads=512, ctas=1)),
-                             ((2, 241, 241), torch.float32, dict(ctas=4)),
-                             ((2, 8, 8), torch.float32, dict(threads=1024)),
-                             ((2, 8, 8), torch.float32, dict(ctas=3)),
-                             ((2, 8, 8), torch.float64, dict(ctas=8))):
+    for shape, dtype in (((2, 241, 241), torch.float32),
+                         ((2, 170, 170), torch.float64),
+                         ((1, 241, 241), torch.float32)):
         with pytest.raises(ValueError):
             tchol.micro_chol_inv(torch.empty(shape, dtype=dtype,
-                                             device="meta"), **kw)
+                                             device="meta"))
     assert tchol.micro_chol_inv.launches == before
 
 

@@ -3,8 +3,8 @@ package's (XLA path, float64 on the CPU), on the circle fixture with
 outliers and on the INTEL+50 replay graph: 1e-10 relative.  Then the fused
 kernel's indexed entry, which the solver calls: bitwise the JAX-shaped
 entry on gathered inputs and the former gathered path, against the JAX
-Pallas kernel in interpret mode, its per-EdgeSet preparation, and the
-checks its wrapper makes before a launch."""
+Pallas kernel in interpret mode, the loop mask it reads from the
+EdgeSet, and the checks its wrapper makes before a launch."""
 
 import os
 
@@ -133,9 +133,8 @@ def test_indexed_linearize_plain_equals_gathered(request, case, robust):
     P = torch.as_tensor(poses)
     want = olin.fused_linearize_se2_plain(*_gathered_args(te, P, tf), 0.5,
                                           0.01, robust=robust)
-    prep = olin.edge_prep(te, P.dtype)
     plain = olin.fused_linearize_se2_indexed_plain(
-        P, tf.node, prep.ab, prep.meas, prep.loop_f, prep.active, 0.5, 0.01,
+        P, tf.node, te.ab, te.meas, te.loop_f, te.active, 0.5, 0.01,
         robust=robust)
     wrapper = olin.fused_linearize_se2_indexed(P, tf.node, te, 0.5, 0.01,
                                                robust=robust)
@@ -201,27 +200,39 @@ def test_linearize_bitwise_as_gathered_path(request, case, robust):
 
 
 def test_edge_prep_is_per_edge_set(intel_case):
-    """The preparation is kept for the same EdgeSet and dtype, and built
-    anew for another EdgeSet (another active mask or loop mask) or dtype;
-    the linearisation follows the EdgeSet it is given."""
+    """The float loop mask is made with the EdgeSet, in the dtype of its
+    measurements (``is_loop`` is its boolean view, not a second copy), and
+    a call reads the EdgeSet it is given: another active mask or loop mask
+    gives that EdgeSet's outputs, and nothing is kept between calls."""
     g, je, te, jf, tf, poses, sw = intel_case
-    p1 = olin.edge_prep(te, torch.float64)
-    assert olin.edge_prep(te, torch.float64) is p1
-    assert torch.equal(p1.loop_f, te.is_loop.to(torch.float64))
-    half = te._replace(active=te.active * 0.5)
-    p2 = olin.edge_prep(half, torch.float64)
-    assert p2 is not p1 and p2.active is half.active
-    flipped = te._replace(is_loop=~te.is_loop)
-    p3 = olin.edge_prep(flipped, torch.float64)
-    assert p3 is not p1
-    assert torch.equal(p3.loop_f, (~te.is_loop).to(torch.float64))
-    p4 = olin.edge_prep(te, torch.float32)
-    assert p4 is not p1 and p4.loop_f.dtype == torch.float32
+    assert te.loop_f.dtype == te.meas.dtype == torch.float64
+    assert torch.equal(te.loop_f, te.is_loop.to(torch.float64))
+    te32 = tp.edge_set_from_graph(convert.graph_from_jax(g),
+                                  dtype=torch.float32, pad_to=1536)
+    assert te32.loop_f.dtype == torch.float32
+    assert torch.equal(te32.is_loop, te.is_loop)
+    with pytest.raises(ValueError):
+        te._replace(is_loop=~te.is_loop)
     P = torch.as_tensor(poses)
-    full = olin.fused_linearize_se2_indexed(P, tf.node, te, 0.5, 0.01)
-    halved = olin.fused_linearize_se2_indexed(P, tf.node, half, 0.5, 0.01)
-    assert torch.equal(halved["w"], 0.5 * full["w"])
-    assert olin.edge_prep(te, torch.float64) is p1
+
+    def lin(edges):
+        return olin.fused_linearize_se2_indexed(P, tf.node, edges, 0.5, 0.01,
+                                                robust="dcs")
+
+    full = lin(te)
+    half = te._replace(active=te.active * 0.5)
+    assert torch.equal(lin(half)["w"], 0.5 * full["w"])
+    flipped = te._replace(loop_f=1.0 - te.loop_f)
+    assert torch.equal(flipped.is_loop, ~te.is_loop)
+    got = lin(flipped)
+    want = olin.fused_linearize_se2_plain(*_gathered_args(flipped, P, tf),
+                                          0.5, 0.01, robust="dcs")
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert not torch.equal(got["e"], full["e"])
+    again = lin(te)
+    for k in full:
+        assert torch.equal(again[k], full[k]), k
 
 
 def _meta(te, **swap):
@@ -229,13 +240,13 @@ def _meta(te, **swap):
     launch), some fields swapped first."""
     te = te._replace(**swap)
     return te._replace(**{k: getattr(te, k).to("meta") for k in
-                          ("ij", "meas", "is_loop", "active", "info", "ab")})
+                          ("ij", "meas", "loop_f", "active", "info", "ab")})
 
 
 def test_indexed_wrapper_checks_before_any_launch(intel_case):
-    """Off the CPU, bad shapes and dtypes raise before the kernel is built
-    or launched: of the poses and the free mask on each call, of the edge
-    tensors when the EdgeSet is prepared."""
+    """Off the CPU, bad shapes, dtypes and layouts raise before the kernel
+    is built or launched: of the poses, the free mask and every edge tensor
+    the kernel reads, on each call."""
     g, je, te, jf, tf, poses, sw = intel_case
     N = g.num_nodes
     before = olin.fused_linearize_se2.launches
@@ -253,7 +264,9 @@ def test_indexed_wrapper_checks_before_any_launch(intel_case):
         (poses_m, free_m, _meta(te, ab=te.ab[1:])),
         (poses_m, free_m, _meta(te, active=te.active[1:])),
         (poses_m, free_m, _meta(te, meas=te.meas[:, :2])),
-        (poses_m, free_m, _meta(te, is_loop=te.is_loop[1:])),
+        (poses_m, free_m, _meta(te, loop_f=te.loop_f[1:])),
+        (poses_m, free_m, _meta(te, loop_f=te.loop_f.float())),
+        (poses_m, free_m, _meta(te, meas=te.meas.t().contiguous().t())),
     ]
     for k, (P, F, edges) in enumerate(bad_calls):
         with pytest.raises(ValueError):
