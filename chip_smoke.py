@@ -21,7 +21,8 @@ the script exits non-zero and prints no result line):
      gathered inputs, each within TOL of its plain version and the two
      bitwise equal;
    - ``micro_chol_inv`` on SPD batches of (16, 128, 128) and
-     (32, 128, 128), and on real panels: the first and the trailing
+     (32, 128, 128), of 48 and 80 such panels (where the kernel takes 2
+     and 1 CTAs a matrix), and on real panels: the first and the trailing
      diagonal panel of the equilibrated Schur interiors of INTEL+50 and
      M10000+50 at their initial poses, lambda = 1e-4; L bitwise equal to
      the plain version's, the inverse within TOL (SPD) or RESID_FACTOR
@@ -459,17 +460,21 @@ def phase_kernels(device, peaks, timings: list) -> dict:
                 check_chol(f"{label}-{which}", panels[which], name,
                            "residual")
 
-        # SPD batches at the path's panel counts (16 INTEL, 32 M10000).
-        for m in (16, 32):
+        # SPD batches at the path's panel counts (16 INTEL, 32 M10000),
+        # timed; and at larger batches, where the kernel takes 2 and 1
+        # CTAs a matrix (4 m and 2 m past the SM count).
+        for m in (16, 32, 48, 80):
             rng = np.random.default_rng(m)
             G = rng.normal(size=(m, PANEL, PANEL))
             A = torch.as_tensor(G @ G.transpose(0, 2, 1)
                                 + PANEL * np.eye(PANEL),
                                 dtype=dtype, device=device)
             err = check_chol(f"spd{m}", A, name, "spd")
-            timings.append(functools.partial(
-                time_chol, A, err, peaks,
-                summary if m == 16 and dtype == torch.float32 else None))
+            if m <= 32:
+                timings.append(functools.partial(
+                    time_chol, A, err, peaks,
+                    summary if m == 16 and dtype == torch.float32
+                    else None))
     return summary
 
 

@@ -47,11 +47,14 @@
 //     and the shuffle (inverse_column).  Columns c and p - 1 - c go to one
 //     warp, so each warp walks p + 1 rows;
 //   - with several CTAs per matrix (blockIdx.y), each factors the whole
-//     matrix (the same bits, and no cluster barrier per column), then
-//     writes its share of the rows of L and inverts its share of the column
-//     pairs.  A CTA has 512 threads where their registers hold the tile (p
-//     <= 128 in float32, 64 in float64; 16 warps for the inverse while the
-//     factor runs on the first 256), else 256.  The batch gets 4 CTAs per
+//     matrix, then writes its share of the rows of L and inverts its share
+//     of the column pairs.  A thread-block cluster of 2 or 4 CTAs sharing
+//     one factor (each CTA a band of rows, column j broadcast through
+//     distributed shared memory, a cluster barrier per column) gave the
+//     same bits but took 2.0-2.7 times as long on the H100 (PERF.md).  A
+//     CTA has 512 threads where their registers hold the tile (p <= 128 in
+//     float32, 64 in float64; 16 warps for the inverse while the factor
+//     runs on the first 256), else 256.  The batch gets 4 CTAs per
 //     matrix while 4 m is at most the SM count, else 2 or 1, so that the
 //     grid runs in one wave: a second wave would repeat the whole factor.
 //     On the H100 at m = 16 and 32 and p = 128, 512 threads x 4 CTAs were
@@ -350,227 +353,6 @@ int micro_chol_inv(const void* a, void* l_out, void* inv_out, int64_t m,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-
-// ---------------------------------------------------------------------------
-// Measurement variant: a thread-block cluster of C CTAs per matrix that
-// shares one factorisation.  CTA r of the cluster holds the block rows a
-// with a = r (mod C) in its register tiles; at step j each CTA scales its
-// rows of column j and stores them into the shared memory of every CTA of
-// the cluster (distributed shared memory), then one cluster barrier
-// (release / acquire) replaces the CTA barrier.  Each element keeps its
-// updates in the order j = 0..k-1, so L has the same bits; the inverse is
-// the same code on the same L, its column pairs split by cluster rank.
-
-__device__ __forceinline__ void cluster_barrier() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ unsigned int cluster_rank() {
-  unsigned int r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-template <typename T>
-__device__ __forceinline__ void st_cluster(uint32_t addr, T v);
-template <>
-__device__ __forceinline__ void st_cluster<float>(uint32_t addr, float v) {
-  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
-               : "memory");
-}
-template <>
-__device__ __forceinline__ void st_cluster<double>(uint32_t addr, double v) {
-  asm volatile("st.shared::cluster.f64 [%0], %1;\n" ::"r"(addr), "d"(v)
-               : "memory");
-}
-
-// The factor of one CTA of the cluster (rank RANK); ends after the last
-// step's cluster barrier, with every column of L in this CTA's tile.
-template <typename T, int TR, int C, int RANK>
-__device__ __forceinline__ void cluster_factor(T* s, int ld, int p, int tr,
-                                               int tc, bool fac) {
-  constexpr int R = kR;
-  uint32_t peer[C];  // shared::cluster address of s in each CTA
-  {
-    const uint32_t local = static_cast<uint32_t>(__cvta_generic_to_shared(s));
-#pragma unroll
-    for (int q = 0; q < C; ++q) {
-      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-                   : "=r"(peer[q]) : "r"(local), "r"(q));
-    }
-  }
-  T t[TR][TR];
-  T dg[TR];
-  if (fac) {
-#pragma unroll
-    for (int ta = 0; ta < TR; ++ta) {
-      if (ta % C != RANK) continue;
-      const int i = ta * R + tr;
-#pragma unroll
-      for (int tb = 0; tb <= ta; ++tb) {
-        const int k = tb * R + tc;
-        t[ta][tb] = (i < p && k <= i) ? s[i * ld + k] : T(0);
-      }
-    }
-#pragma unroll
-    for (int tb = 0; tb < TR; ++tb) {
-      const int k = tb * R + tc;
-      dg[tb] = k < p ? s[k * ld + k] : T(1);
-    }
-  }
-  // Every CTA has read its staged panel (and is running) before column 0
-  // of L reaches it.
-  cluster_barrier();
-  const int last = (p - 1) * ld;
-#pragma unroll
-  for (int a0 = 0; a0 < TR; ++a0) {
-    auto store_column = [&](int col) {
-      const T r = d_rsqrt(dg[a0]);
-#pragma unroll
-      for (int ta = a0; ta < TR; ++ta) {
-        if (ta % C != RANK) continue;
-        const int i = ta * R + tr;
-        if (i < p) {
-          const T v = t[ta][a0] * r;
-          const uint32_t off = static_cast<uint32_t>((i * ld + col) * sizeof(T));
-#pragma unroll
-          for (int q = 0; q < C; ++q) st_cluster<T>(peer[q] + off, v);
-        }
-      }
-    };
-    for (int jj = 0; jj < R; ++jj) {
-      const int j = a0 * R + jj;
-      if (j >= p) break;
-      if (jj == 0 && fac && tc == 0) store_column(j);
-      cluster_barrier();
-      if (fac) {
-        T ci[TR], ck[TR];
-#pragma unroll
-        for (int ta = a0; ta < TR; ++ta) {
-          if (ta % C == RANK) ci[ta] = s[min((ta * R + tr) * ld, last) + j];
-          ck[ta] = s[min((ta * R + tc) * ld, last) + j];
-        }
-#pragma unroll
-        for (int ta = a0; ta < TR; ++ta) {
-          if (ta % C != RANK) continue;
-          t[ta][a0] = add_rn(t[ta][a0], -mul_rn(ci[ta], ck[a0]));
-        }
-        dg[a0] = add_rn(dg[a0], -mul_rn(ck[a0], ck[a0]));
-        if (tc == jj + 1 && j + 1 < p) store_column(j + 1);
-#pragma unroll
-        for (int ta = a0 + 1; ta < TR; ++ta) {
-          if (ta % C == RANK) {
-#pragma unroll
-            for (int tb = a0 + 1; tb <= ta; ++tb) {
-              t[ta][tb] = add_rn(t[ta][tb], -mul_rn(ci[ta], ck[tb]));
-            }
-          }
-          dg[ta] = add_rn(dg[ta], -mul_rn(ck[ta], ck[ta]));
-        }
-      }
-    }
-  }
-}
-
-template <typename T, int TR, int NW, int C>
-__global__ void __launch_bounds__(NW * 32)
-micro_chol_inv_cluster_kernel(const T* __restrict__ a, T* __restrict__ l_out,
-                              T* __restrict__ inv_out, int p) {
-  extern __shared__ unsigned char smem_raw[];
-  T* s = reinterpret_cast<T*>(smem_raw);
-  const int ld = p + 1;
-  T* xdiag = s + p * ld;
-  const int64_t base = static_cast<int64_t>(blockIdx.x / C) * p * p;
-  const int slice = static_cast<int>(cluster_rank());
-  constexpr int slices = C;
-  constexpr int R = kR;
-  const int tid = threadIdx.x;
-  const bool fac = tid < R * R;
-  const int tr = tid / R;
-  const int tc = tid - tr * R;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  for (int i = warp; i < p; i += NW) {
-    const T* src = a + base + static_cast<int64_t>(i) * p;
-    for (int c = lane; c <= i; c += 32) cp_async(s + i * ld + c, src + c);
-  }
-  cp_async_wait_all();
-  __syncthreads();
-  switch (slice) {
-    case 0: cluster_factor<T, TR, C, 0>(s, ld, p, tr, tc, fac); break;
-    case 1:
-      if constexpr (C > 1) cluster_factor<T, TR, C, 1>(s, ld, p, tr, tc, fac);
-      break;
-    case 2:
-      if constexpr (C > 2) cluster_factor<T, TR, C, 2>(s, ld, p, tr, tc, fac);
-      break;
-    default:
-      if constexpr (C > 3) cluster_factor<T, TR, C, 3>(s, ld, p, tr, tc, fac);
-      break;
-  }
-  for (int i = warp * slices + slice; i < p; i += NW * slices) {
-    T* dst = l_out + base + static_cast<int64_t>(i) * p;
-    for (int c = lane; c < p; c += 32) dst[c] = c <= i ? s[i * ld + c] : T(0);
-  }
-  constexpr int RL = (TR * R + 31) / 32;
-  for (int q = slice + slices * warp; 2 * q < p; q += slices * NW) {
-    invert_column<T, RL>(s, ld, p, q, xdiag, lane);
-    if (p - 1 - q != q) invert_column<T, RL>(s, ld, p, p - 1 - q, xdiag, lane);
-  }
-  __syncthreads();
-  for (int i = warp; i < p; i += NW) {
-    T* dst = inv_out + base + static_cast<int64_t>(i) * p;
-    for (int c = lane; c < p; c += 32) {
-      if (((c < p - 1 - c ? c : p - 1 - c) & (slices - 1)) != slice) continue;
-      dst[c] = c < i ? s[c * ld + i] : (c == i ? xdiag[c] : T(0));
-    }
-  }
-}
-
-template <typename T, int TR, int NW, int C>
-int launch_chol_cluster(const void* a, void* l_out, void* inv_out, int64_t m,
-                        int64_t p, cudaStream_t stream) {
-  const size_t smem = sizeof(T) * static_cast<size_t>(p * (p + 2));
-  auto kernel = micro_chol_inv_cluster_kernel<T, TR, NW, C>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned int>(m * C));
-  cfg.blockDim = dim3(NW * 32);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(a),
-                           static_cast<T*>(l_out), static_cast<T*>(inv_out),
-                           static_cast<int>(p));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// float32, 64 < p <= 128 (the Schur panels): 512 threads, clusters of 2 or
-// 4 CTAs.
-int micro_chol_inv_cluster_f32(const void* a, void* l_out, void* inv_out,
-                               int64_t m, int64_t p, int cluster,
-                               void* stream) {
-  if (m <= 0 || p <= 64 || p > 128) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cluster == 2)
-    return launch_chol_cluster<float, 8, 16, 2>(a, l_out, inv_out, m, p, s);
-  if (cluster == 4)
-    return launch_chol_cluster<float, 8, 16, 4>(a, l_out, inv_out, m, p, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 }  // namespace slam
 
 extern "C" {
@@ -583,18 +365,6 @@ int slam_micro_chol_inv_f32(const void* a, void* l_out, void* inv_out,
 int slam_micro_chol_inv_f64(const void* a, void* l_out, void* inv_out,
                             int64_t m, int64_t p, void* stream) {
   return slam::micro_chol_inv<double>(a, l_out, inv_out, m, p, stream);
-}
-
-int slam_micro_chol_inv_cluster_f32(const void* a, void* l_out,
-                                    void* inv_out, int64_t m, int64_t p,
-                                    int cluster, void* stream) {
-  return slam::micro_chol_inv_cluster_f32(a, l_out, inv_out, m, p, cluster,
-                                          stream);
-}
-
-int slam_micro_chol_inv_cluster_f64(const void*, void*, void*, int64_t,
-                                    int64_t, int, void*) {
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

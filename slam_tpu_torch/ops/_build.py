@@ -38,7 +38,6 @@ _SIGNATURES = {
     "slam_linearize_se2_indexed": [_P] * 6 + [_F64, _F64, _INT, _P, _I64,
                                               _P],
     "slam_micro_chol_inv": [_P, _P, _P, _I64, _I64, _P],
-    "slam_micro_chol_inv_cluster": [_P, _P, _P, _I64, _I64, _INT, _P],
 }
 
 _lib: ctypes.CDLL | None = None
