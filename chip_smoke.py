@@ -12,7 +12,8 @@ the script exits non-zero and prints no result line):
 2. each kernel against its plain PyTorch version on the card, in float32
    and float64:
    - every gather and scatter launch of one LM iteration of INTEL+50 and
-     M10000+50 (real poses and edges), recorded and replayed: each
+     M10000+50 (real poses and edges), and of INTEL+50 under method 2 on
+   the Schur, dense and PCG solvers, recorded and replayed: each
      gather bitwise equal to ``index_select``; each grouped scatter
      launch bitwise equal to itself run again and to its groups launched
      one at a time, and within TOL of its plain version;
@@ -44,7 +45,25 @@ the script exits non-zero and prints no result line):
    M10000+50, cost <= 0.8 x initial; (d) LM iterations/s of (b) and (c)
    under the native, blocked-plain-panel and blocked-kernel
    configurations, in turns; native INTEL within ``LAUNCH_LIMITS``;
-7. the kernels' times, after the end-to-end phases and with every
+7. method 2 (switchable constraints), float32:
+   (a) ``method2_path``: ``INTEL 50 2 --seed 42`` through the CLI (auto
+   solver = Schur with the switches eliminated), and again with
+   ``--sc-varpro``: ``switches.txt`` in the reference's layout, the final
+   cost against the float64 JAX run's and its count of loop switches
+   below 0.5, the launches per LM iteration;
+   (b) ``method2_dense``: joint SC on the dense joint system, 50
+   ``lm_fixed_iters`` against the float64 reference;
+   (c) ``method2_ab``: joint SC on INTEL+50 (against the reference) and
+   M10000+50 (cost <= 0.8 x initial), 50 ``lm_fixed_iters`` under the
+   native, blocked-plain-panel and blocked-kernel factorisations, LM
+   iterations/s in turns; native INTEL within ``M2_LAUNCH_LIMITS``;
+   (d) ``pcg``: plain DCS and joint SC on PCG (tridiagonal
+   preconditioner), 10 ``lm_fixed_iters`` each against the float64
+   reference, with the CG iterations and the launches per CG iteration
+   (at most ``PCG_LAUNCH_LIMIT`` gathers and scatters);
+   (e) ``report_stages``: the method-2 CLI with ``--report-stages``,
+   three positive, finite stage times;
+8. the kernels' times, after the end-to-end phases and with every
    profiler session last, since one leaves the later host-bound calls of
    its process slower (``[kernels]`` lines, float32; and
    ``micro_chol_inv`` in float64): per launch and per plan of the
@@ -97,6 +116,30 @@ REF_COST_RTOL = 1e-3      # float32 card vs float64 JAX reference (native)
 # --device cpu); PERF.md gives both spreads.  Both reach 1.03e-3.
 BLOCKED_REF_COST_RTOL = 2.1e-3
 SCALE_COST_FRAC = 0.8     # M10000: cost <= 0.8 x initial
+# Method 2's gates and PCG's against the float64 JAX references: each is
+# twice the largest |relative difference| of float32 from its reference
+# over the initial poses and 16 copies perturbed by 1e-7 (and the three
+# Schur factorisations where the path is the Schur solver's), on the card
+# and on the CPU (python -m slam_tpu_torch.tools.f32_spread --perturb 16
+# --robust R --linear-solver S [--cli], and --device cpu); PERF.md gives
+# both.  Keyed by (robust, linear solver, command-line run), the largest
+# spread in the comment, card / CPU.
+M2_REF_COST_RTOL = {
+    ("sc", "schur", True): 1.82e-2,        # 8.16e-3 / 9.09e-3
+    ("sc_varpro", "schur", True): 4.06e-2,  # 2.03e-2 / 1.91e-2
+    ("sc", "dense", False): 8.62e-3,       # 4.31e-3 / 1.41e-4
+    ("sc", "schur", False): 2.71e-2,       # 1.35e-2 / 1.32e-2
+    ("dcs", "pcg", False): 2.06e-3,        # 1.03e-3 / 6.86e-4
+    ("sc", "pcg", False): 0.102,           # 5.09e-2 / 5.06e-2
+}
+# Launches per LM iteration of native INTEL joint SC (phase 7c): the
+# linearisation gathers both sources and sums its nodes, the elimination
+# sums its corrections, the Schur solve gathers and scatters as for DCS,
+# the back-substitution gathers.
+M2_LAUNCH_LIMITS = {"gather_rows": 7, "scatter_add_rows": 5}
+# Gathers and scatters per CG iteration of a PCG run: one each per matvec,
+# and a few per LM iteration outside the CG loop.
+PCG_LAUNCH_LIMIT = 1.05
 PANEL = 128               # schur_panel of the blocked path
 KERNEL_INFO = {  # name: (source, TPU kernel it replaces, phase that runs it)
     "gather_rows": ("slam_tpu_torch/csrc/gather.cu",
@@ -113,6 +156,13 @@ PHASE_KERNELS = {
     "main_path": ("gather_rows", "scatter_add_rows", "fused_linearize_se2"),
     "blocked_path": ("gather_rows", "scatter_add_rows",
                      "fused_linearize_se2", "micro_chol_inv"),
+    "method2_path": ("gather_rows", "scatter_add_rows"),
+    "method2_varpro": ("gather_rows", "scatter_add_rows"),
+    "method2_dense": ("gather_rows", "scatter_add_rows"),
+    "method2_ab": ("gather_rows", "scatter_add_rows", "micro_chol_inv"),
+    "pcg_dcs": ("gather_rows", "scatter_add_rows", "fused_linearize_se2"),
+    "pcg_sc": ("gather_rows", "scatter_add_rows"),
+    "report_stages": ("gather_rows", "scatter_add_rows"),
 }
 # Launches per LM iteration of native INTEL plain DCS (phase 6d): one
 # gather per source outside the linearisation (which reads its endpoints
@@ -343,7 +393,7 @@ def time_chol(A, err: float, peaks, summary):
 
 
 def phase_kernel_times(timings: list) -> None:
-    """Phase 7: the host-sensitive times of every job first, then all the
+    """Phase 8: the host-sensitive times of every job first, then all the
     device times under torch.profiler (a profiler session leaves the
     later host-bound calls of its process slower), then the lines."""
     from slam_tpu_torch.tools import kernel_times as kt
@@ -367,8 +417,10 @@ def phase_kernels(device, peaks, timings: list) -> dict:
     from slam_tpu_torch.ops.linearize import fused_linearize_se2, \
         fused_linearize_se2_indexed, fused_linearize_se2_indexed_plain, \
         fused_linearize_se2_plain
+    from slam_tpu_torch.solver import linear
     from slam_tpu_torch.tools import kernel_times as kt
-    from slam_tpu_torch.tools.problems import CONFIGS, intel50, m10000
+    from slam_tpu_torch.tools.problems import CONFIGS, intel50, \
+        intel50_plain, m10000
 
     summary = {}
     for dtype in (torch.float32, torch.float64):
@@ -460,6 +512,23 @@ def phase_kernels(device, peaks, timings: list) -> dict:
                 check_chol(f"{label}-{which}", panels[which], name,
                            "residual")
 
+        # Method 2 on INTEL: one iteration of joint SC with the switches
+        # eliminated before the Schur solver, on the dense joint system,
+        # and on PCG (capped at 3 CG iterations).
+        m2 = intel50_plain(device, name, "sc", "schur")
+        m2_args = (m2.poses0, m2.switches0, m2.edges, m2.free)
+        for solver, plan in (("schur", m2.partition),
+                             ("dense", linear.dense_plan(m2.edges,
+                                                         switches=True)),
+                             ("pcg", None)):
+            cfg = m2.scfg.replace(linear_solver=solver, pcg_max_iters=3)
+            calls, counts, _ = kt.record_iteration(m2_args, cfg, plan)
+            label = f"INTEL-sc-{solver}"
+            log("kernels", shape=label, dtype=name,
+                checked_calls=len(calls),
+                scatter_max_abs_err=check_launches(calls, label, name),
+                launches_per_run=json.dumps(counts))
+
         # SPD batches at the path's panel counts (16 INTEL, 32 M10000),
         # timed; and at larger batches, where the kernel takes 2 and 1
         # CTAs a matrix (4 m and 2 m past the SM count).
@@ -531,9 +600,7 @@ def phase_main_path() -> dict:
 
 
 def reference_cost() -> dict:
-    with open(os.path.join(REPO, "slam_tpu_torch", "data",
-                           "reference_costs.json")) as f:
-        return json.load(f)["intel50_plain_dcs_lm_fixed_iters"]
+    return reference("intel50_plain_dcs_lm_fixed_iters")
 
 
 def timed_lm(args, cfg, iters: int, part) -> tuple:
@@ -597,11 +664,41 @@ def phase_scale(device, smi: str) -> None:
                              f"{cost0}")
 
 
+def lm_in_turns(tag: str, label: str, args, base, part, iters: int,
+                smi: str) -> dict:
+    """``iters`` LM iterations of one case under each Schur factorisation
+    (``CONFIGS``), after a warm-up of each, timed in turns (a, b, c, c, b,
+    a); one ``[tag]`` line per factorisation.  Returns ``{factorisation:
+    [(result, wall, launch counts, cost)] * 2}``."""
+    from slam_tpu_torch.solver.lm import lm_fixed_iters
+    from slam_tpu_torch.tools.problems import CONFIGS
+
+    for kw in CONFIGS.values():  # warm-up of each configuration
+        lm_fixed_iters(*args, base.replace(**kw), 2, partition=part)
+    runs = {k: [] for k in CONFIGS}
+    for name in list(CONFIGS) + list(CONFIGS)[::-1]:
+        runs[name].append(timed_lm(args, base.replace(**CONFIGS[name]),
+                                   iters, part))
+    for name, rs in runs.items():
+        res, _, counts, cost = rs[0]
+        walls = [r[1] for r in rs]
+        if any(r[3] != cost for r in rs):
+            raise AssertionError(f"{label} {name}: the two runs differ")
+        log(tag, shape=label, config=name, final_cost=cost,
+            initial_cost=float(res.initial_cost),
+            accepted=int(res.accepted), iters=iters,
+            wall_s=json.dumps([round(w, 4) for w in walls]),
+            lm_it_per_s=round(iters * len(walls) / sum(walls), 2),
+            launches_per_iter=json.dumps(
+                {k: n / iters for k, n in counts.items()}),
+            card=json.dumps(smi))
+    return runs
+
+
 def phase_blocked(device, smi: str) -> dict:
     """Phase 6; returns the launch counts of the blocked INTEL path."""
     from slam_tpu_torch.config import RunConfig, SolverConfig
     from slam_tpu_torch.methods.global_solve import run_from_config
-    from slam_tpu_torch.solver.lm import lm_fixed_iters
     from slam_tpu_torch.tools.problems import CONFIGS, intel50_plain_dcs, \
         m10000
 
@@ -633,28 +730,8 @@ def phase_blocked(device, smi: str) -> dict:
                   prob.scfg, prob.partition),
         "M10000": (m.args, m.cfg, m.partition),
     }
-    order = list(CONFIGS) + list(CONFIGS)[::-1]
     for label, (args, base, part) in cases.items():
-        for kw in CONFIGS.values():  # warm-up of each configuration
-            lm_fixed_iters(*args, base.replace(**kw), 2, partition=part)
-        runs = {k: [] for k in CONFIGS}
-        for name in order:
-            res, wall, counts, cost = timed_lm(
-                args, base.replace(**CONFIGS[name]), iters, part)
-            runs[name].append((res, wall, counts, cost))
-        for name, rs in runs.items():
-            res, _, counts, cost = rs[0]
-            walls = [r[1] for r in rs]
-            if any(r[3] != cost for r in rs):
-                raise AssertionError(f"{label} {name}: the two runs differ")
-            log("blocked_ab", shape=label, config=name, final_cost=cost,
-                initial_cost=float(res.initial_cost),
-                accepted=int(res.accepted), iters=iters,
-                wall_s=json.dumps([round(w, 4) for w in walls]),
-                lm_it_per_s=round(iters * len(walls) / sum(walls), 2),
-                launches_per_iter=json.dumps(
-                    {k: n / iters for k, n in counts.items()}),
-                card=json.dumps(smi))
+        runs = lm_in_turns("blocked_ab", label, args, base, part, iters, smi)
         native = {k: n / iters for k, n in runs["native"][0][2].items()}
         over = {k: v for k, v in native.items()
                 if v > LAUNCH_LIMITS.get(k, float("inf"))}
@@ -682,6 +759,255 @@ def phase_blocked(device, smi: str) -> dict:
                 raise AssertionError(f"blocked M10000 cost {cost} > "
                                      f"{SCALE_COST_FRAC} x {cost0}")
     return path_counts
+
+
+def reference(key: str) -> dict:
+    with open(os.path.join(REPO, "slam_tpu_torch", "data",
+                           "reference_costs.json")) as f:
+        return json.load(f)[key]
+
+
+def held_to(phase: str, cost: float, key: str, gate: float) -> float:
+    """The relative difference of ``cost`` from the float64 reference
+    ``key``; raises above ``gate``."""
+    ref = reference(key)["final_cost"]
+    rel = abs(cost - ref) / abs(ref)
+    if not (np.isfinite(cost) and rel <= gate):
+        raise AssertionError(f"{phase}: cost {cost} vs float64 reference "
+                             f"{ref} ({key}): rel {rel} > {gate}")
+    return rel
+
+
+def log_record(path: str, tag: str) -> dict:
+    """The ``key=value`` fields of the last ``[tag]`` line of a run log."""
+    fields = {}
+    with open(path) as f:
+        for line in f:
+            if line.startswith(f"[{tag}] "):
+                fields = dict(w.split("=", 1) for w in line.split()[1:]
+                              if "=" in w)
+    if not fields:
+        raise AssertionError(f"no [{tag}] line in {path}")
+    return fields
+
+
+def check_switches(phase: str, path: str, ref: dict) -> int:
+    """``switches.txt`` in the reference's layout (``g2o_util.h:114-148``):
+    the odometry section (rows ``a b 0 1 1``), then the closure and the
+    bogus section (rows ``a b type prior switch``), as many loop rows as
+    the reference run has.  Returns the count of loop switches < 0.5."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    heads = ["Odometry EDGES AHEAD", "Closure EDGES AHEAD",
+             "BOGUS EDGES AHEAD"]
+    if [ln for ln in lines if not ln[:1].isdigit()] != heads \
+            or lines[0] != heads[0]:
+        raise AssertionError(f"{phase}: switches.txt sections differ")
+    section, loops = -1, []
+    for ln in lines:
+        if ln in heads:
+            section = heads.index(ln)
+            continue
+        w = ln.split()
+        if len(w) != 5 or int(w[2]) != section:
+            raise AssertionError(f"{phase}: switches.txt row {ln!r}")
+        if section == 0:
+            if w[3:] != ["1", "1"]:
+                raise AssertionError(f"{phase}: odometry row {ln!r}")
+        else:
+            loops.append(float(w[4]))
+    if len(loops) != ref["loop_edges"] or not np.isfinite(loops).all():
+        raise AssertionError(f"{phase}: {len(loops)} loop switches, "
+                             f"reference {ref['loop_edges']}")
+    return int(sum(v < 0.5 for v in loops))
+
+
+def run_method2_cli(phase: str, argv: list) -> tuple[dict, dict]:
+    """``cli.main(argv)`` through :func:`run_cli_path`; returns the launch
+    counts and what the run left: its ``[solve]`` and ``[report]``
+    records, its count of loop switches < 0.5, its reference, its wall
+    seconds."""
+    from slam_tpu_torch import cli
+
+    got = {}
+
+    def run(save):
+        if cli.main([*argv, "--save-path", save]) != 0:
+            raise AssertionError(f"{phase}: cli.main failed")
+        logf = os.path.join(save, "method2.log")
+        got["solve"] = log_record(logf, "solve")
+        got["report"] = log_record(logf, "report")
+        got["switches"] = os.path.join(save, "switches.txt")
+        if not os.path.isfile(got["switches"]):
+            raise AssertionError(f"{phase} wrote no switches.txt")
+        got["below_half"] = check_switches(phase, got["switches"],
+                                           got["ref"])
+
+    robust = "sc_varpro" if "--sc-varpro" in argv else "sc"
+    got["ref"] = reference(f"intel50_{robust}_cli")
+    counts, wall, poses = run_cli_path(phase, run)
+    if poses.shape[0] != 1228 or not np.isfinite(poses).all():
+        raise AssertionError(f"{phase}: opt_nodes {poses.shape} or "
+                             "non-finite")
+    got["wall"] = wall
+    return counts, got
+
+
+def phase_method2_path(smi: str) -> dict:
+    """Phase 7a: the method-2 CLI, joint SC and ``--sc-varpro``."""
+    out = {}
+    for phase, robust, flag in (("method2_path", "sc", []),
+                                ("method2_varpro", "sc_varpro",
+                                 ["--sc-varpro"])):
+        counts, got = run_method2_cli(
+            phase, ["INTEL", "50", "2", "--seed", "42", *flag])
+        solve, ref = got["solve"], got["ref"]
+        cost, iters = float(solve["final_cost"]), int(solve["iterations"])
+        gate = M2_REF_COST_RTOL[(robust, "schur", True)]
+        rel = held_to(phase, cost, f"intel50_{robust}_cli", gate)
+        log(phase, wall_s=round(got["wall"], 3), final_cost=cost,
+            reference_f64=ref["final_cost"], rel_diff=rel, gate=gate,
+            iterations=iters, accepted=int(solve["accepted"]),
+            reference_accepted=ref["accepted"],
+            loop_switches_below_half=got["below_half"],
+            reference_below_half=ref["loop_switches_below_half"],
+            launches=json.dumps(counts),
+            launches_per_iter=json.dumps({k: n / iters
+                                          for k, n in counts.items()}),
+            card=json.dumps(smi))
+        if got["below_half"] != ref["loop_switches_below_half"]:
+            raise AssertionError(f"{phase}: {got['below_half']} loop "
+                                 "switches < 0.5, reference "
+                                 f"{ref['loop_switches_below_half']}")
+        require_launches(phase, counts)
+        out[phase] = counts
+    return out
+
+
+def phase_method2_dense(device, smi: str) -> dict:
+    """Phase 7b: joint SC on the dense joint system."""
+    from slam_tpu_torch.solver.lm import lm_fixed_iters
+    from slam_tpu_torch.tools.problems import intel50_plain
+
+    key = "intel50_sc_dense_lm_fixed_iters"
+    iters = reference(key)["iterations"]
+    prob = intel50_plain(device, "float32", "sc", "dense")
+    args = (prob.poses0, prob.switches0, prob.edges, prob.free)
+    lm_fixed_iters(*args, prob.scfg, 2, partition=prob.partition)
+    res, wall, counts, cost = timed_lm(args, prob.scfg, iters,
+                                       prob.partition)
+    gate = M2_REF_COST_RTOL[("sc", "dense", False)]
+    rel = held_to("method2_dense", cost, key, gate)
+    n, E = prob.poses0.shape[0], prob.edges.num_edges
+    log("method2_dense", unknowns=3 * n + E, final_cost=cost,
+        initial_cost=float(res.initial_cost),
+        reference_f64=reference(key)["final_cost"], rel_diff=rel, gate=gate,
+        accepted=int(res.accepted), iters=iters, wall_s=round(wall, 4),
+        lm_it_per_s=round(iters / wall, 2),
+        launches_per_iter=json.dumps({k: n_ / iters
+                                      for k, n_ in counts.items()}),
+        card=json.dumps(smi))
+    require_launches("method2_dense", counts)
+    return counts
+
+
+def phase_method2_ab(device, smi: str) -> dict:
+    """Phase 7c: joint SC under the three Schur factorisations."""
+    from slam_tpu_torch.tools.problems import intel50_plain, m10000
+
+    key = "intel50_sc_schur_lm_fixed_iters"
+    iters = reference(key)["iterations"]
+    prob = intel50_plain(device, "float32", "sc", "schur")
+    m = m10000(device, torch.float32, "sc")
+    cases = {
+        "INTEL": ((prob.poses0, prob.switches0, prob.edges, prob.free),
+                  prob.scfg, prob.partition),
+        "M10000": (m.args, m.cfg, m.partition),
+    }
+    gate = M2_REF_COST_RTOL[("sc", "schur", False)]
+    counts = None
+    for label, (args, base, part) in cases.items():
+        runs = lm_in_turns("method2_ab", label, args, base, part, iters,
+                           smi)
+        for name, rs in runs.items():
+            res, _, _, cost = rs[0]
+            if label == "INTEL":
+                rel = held_to(f"method2_ab {name}", cost, key, gate)
+                log("method2_ab", shape=label, config=name,
+                    reference_f64=reference(key)["final_cost"],
+                    rel_diff=rel, gate=gate)
+            else:
+                cost0 = float(res.initial_cost)
+                if not (np.isfinite(cost)
+                        and cost <= SCALE_COST_FRAC * cost0):
+                    raise AssertionError(
+                        f"method2_ab M10000 {name}: cost {cost} > "
+                        f"{SCALE_COST_FRAC} x {cost0}")
+        micro = runs["blocked_micro"][0][2]
+        require_launches("method2_ab", micro)
+        if label == "INTEL":
+            counts = micro
+            over = {k: n / iters for k, n in runs["native"][0][2].items()
+                    if n / iters > M2_LAUNCH_LIMITS.get(k, float("inf"))}
+            if over:
+                raise AssertionError(f"INTEL joint SC native launches per "
+                                     f"iteration {over} above "
+                                     f"{M2_LAUNCH_LIMITS}")
+    return counts
+
+
+def phase_pcg(device, smi: str) -> dict:
+    """Phase 7d: plain DCS and joint SC on PCG."""
+    from slam_tpu_torch.solver.lm import lm_fixed_iters
+    from slam_tpu_torch.tools.problems import intel50_plain, reference_key
+
+    out = {}
+    for phase, robust in (("pcg_dcs", "dcs"), ("pcg_sc", "sc")):
+        key = reference_key(robust, "pcg")
+        ref = reference(key)
+        iters = ref["iterations"]
+        prob = intel50_plain(device, "float32", robust, "pcg")
+        args = (prob.poses0, prob.switches0, prob.edges, prob.free)
+        lm_fixed_iters(*args, prob.scfg, 1, partition=None)  # warm-up
+        res, wall, counts, cost = timed_lm(args, prob.scfg, iters, None)
+        cg = res.lin_iters
+        gate = M2_REF_COST_RTOL[(robust, "pcg", False)]
+        rel = held_to(phase, cost, key, gate)
+        per_cg = {k: n / cg for k, n in counts.items()}
+        log("pcg", robust=robust, final_cost=cost,
+            initial_cost=float(res.initial_cost),
+            reference_f64=ref["final_cost"], rel_diff=rel, gate=gate,
+            accepted=int(res.accepted), reference_accepted=ref["accepted"],
+            iters=iters, cg_iterations=cg,
+            reference_cg_iterations=ref["cg_iterations"],
+            wall_s=round(wall, 4), ms_per_cg_iter=round(wall * 1e3 / cg, 4),
+            lm_it_per_s=round(iters / wall, 3),
+            launches_per_cg_iter=json.dumps(per_cg), card=json.dumps(smi))
+        require_launches(phase, counts)
+        over = {k: v for k, v in per_cg.items()
+                if k in ("gather_rows", "scatter_add_rows")
+                and v > PCG_LAUNCH_LIMIT}
+        if over:
+            raise AssertionError(f"{phase}: launches per CG iteration "
+                                 f"{over} above {PCG_LAUNCH_LIMIT}")
+        out[phase] = counts
+    return out
+
+
+def phase_report_stages(smi: str) -> dict:
+    """Phase 7e: the method-2 CLI with ``--report-stages``."""
+    counts, got = run_method2_cli(
+        "report_stages",
+        ["INTEL", "50", "2", "--seed", "42", "--report-stages"])
+    stages = {k: float(got["report"].get(f"t_{k}_s", "nan"))
+              for k in ("linearize", "linear_solve", "retract_cost")}
+    log("report_stages", **{f"{k}_ms": v * 1e3 for k, v in stages.items()},
+        launches=json.dumps(counts), card=json.dumps(smi))
+    bad = {k: v for k, v in stages.items() if not (np.isfinite(v) and v > 0)}
+    if bad:
+        raise AssertionError(f"report_stages: stage times {bad}")
+    require_launches("report_stages", counts)
+    return counts
 
 
 def main() -> int:
@@ -720,6 +1046,11 @@ def main() -> int:
         ("plain_dcs", lambda: phase_plain_dcs(device, smi)),
         ("scale", lambda: phase_scale(device, smi)),
         ("blocked", lambda: phase_blocked(device, smi)),
+        ("method2_path", lambda: phase_method2_path(smi)),
+        ("method2_dense", lambda: phase_method2_dense(device, smi)),
+        ("method2_ab", lambda: phase_method2_ab(device, smi)),
+        ("pcg", lambda: phase_pcg(device, smi)),
+        ("report_stages", lambda: phase_report_stages(smi)),
         ("kernel_times", lambda: phase_kernel_times(timings)),
     ]
     out = {}
@@ -730,10 +1061,14 @@ def main() -> int:
     log("total", seconds=round(time.perf_counter() - t_all, 3))
 
     launches = {"main_path": out["main_path"],
-                "blocked_path": out["blocked"]}
+                "blocked_path": out["blocked"], **out["method2_path"],
+                "method2_dense": out["method2_dense"],
+                "method2_ab": out["method2_ab"], **out["pcg"],
+                "report_stages": out["report_stages"]}
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": launches[path][k], **out["kernels"][k]}
+         "launches": launches[path][k], **out["kernels"][k],
+         "launches_by_path": {p: c[k] for p, c in launches.items()}}
         for k, (src, tpu, path) in KERNEL_INFO.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,4 @@
-"""Command-line driver of the PyTorch port, methods 0 and 1.
+"""Command-line driver of the PyTorch port, methods 0, 1 and 2.
 
 Same positional interface as ``slam_tpu.cli`` (the reference's
 ``./main DATASET NUM_OUTLIER_LOOPS METHOD``):
@@ -22,9 +22,9 @@ _NOT_PORTED = {
     "sweep": "A17 (sweeps)",
     "checkpoint": "A17 (checkpointed solves)",
     "profile": "A17 (profiling)",
-    "report_stages": "A10 (measure_stages)",
-    "sc_varpro": "A9 (method 2)",
 }
+# Linear solvers of the JAX CLI that are not ported yet.
+_SOLVERS_NOT_PORTED = {"woodbury": "A16"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -37,7 +37,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("num_outliers", type=int,
                    help="number of bogus loops to inject")
     p.add_argument("method", type=int, choices=[0, 1, 2, 3, 4],
-                   help="0=baseline 1=DCS (2=SC 3=layering 4=MCTS are not "
+                   help="0=baseline 1=DCS 2=SC (3=layering 4=MCTS are not "
                         "ported yet)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (default) or cpu (the plain kernel versions)")
@@ -59,11 +59,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--huber-delta", type=float, default=0.01)
     p.add_argument("--sc-lambda", type=float, default=1.0)
     p.add_argument("--sc-varpro", action="store_true",
-                   help="method 2 variant (not ported yet)")
+                   help="method 2 with variable-projection switch "
+                        "elimination (closed-form s*)")
     p.add_argument("--max-iterations", type=int, default=50)
     p.add_argument("--linear-solver", default="auto",
-                   choices=["auto", "dense", "schur"],
-                   help="auto: dense up to 512 nodes, schur above")
+                   choices=["auto", "dense", "pcg", "schur", "woodbury"],
+                   help="auto: dense up to 512 nodes, schur above; pcg: "
+                        "CG with the cyclic-reduction chain "
+                        "preconditioner (woodbury is not ported yet)")
     p.add_argument("--dtype", default=None,
                    choices=[None, "float32", "float64"],
                    help="default: float32 on CUDA, float64 on CPU")
@@ -75,13 +78,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint", default=None, help="not ported yet")
     p.add_argument("--profile", default=None, help="not ported yet")
     p.add_argument("--report-stages", action="store_true",
-                   help="not ported yet")
+                   help="add per-stage (linearize / linear solve / "
+                        "retract+cost) times to the solve report")
     return p
 
 
 def config_from_args(args) -> RunConfig:
     dtype = args.dtype or ("float32" if args.device == "cuda" else "float64")
     solver = SolverConfig(
+        robust="sc_varpro" if args.sc_varpro else "none",
         dcs_phi=args.dcs_phi,
         huber_delta=args.huber_delta,
         sc_prior_lambda=args.sc_lambda,
@@ -99,6 +104,7 @@ def config_from_args(args) -> RunConfig:
         seed=args.seed,
         save_path=args.save_path,
         init=args.init,
+        report_stages=args.report_stages,
         solver=solver,
     )
 
@@ -110,8 +116,10 @@ def main(argv=None) -> int:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported yet (ROADMAP "
                 f"{item})")
-    if args.method == 2:
-        raise NotImplementedError("method 2 is not ported yet (ROADMAP A9)")
+    if args.linear_solver in _SOLVERS_NOT_PORTED:
+        raise NotImplementedError(
+            f"--linear-solver {args.linear_solver} is not ported yet "
+            f"(ROADMAP {_SOLVERS_NOT_PORTED[args.linear_solver]})")
     if args.method in (3, 4):
         raise NotImplementedError(
             f"method {args.method} is not ported yet (ROADMAP A14)")

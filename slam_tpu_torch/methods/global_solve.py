@@ -1,11 +1,12 @@
-"""Methods 0/1: the single global robust solve.
+"""Methods 0/1/2: the single global robust solve.
 
-Port of ``slam_tpu/methods/global_solve.py`` (methods 0 and 1): read g2o,
-inject bogus loops, write ``init_*``; build the robust problem with the
-gauge at pose 0; LM solve; the DCS psi-consensus rescue and the GNC
-auto-retry; report; write ``opt_*``.  Host work (ingestion, init, masks,
-the rescue's random half-subsets) stays in NumPy; the solves run on the
-chosen device.
+Port of ``slam_tpu/methods/global_solve.py``: read g2o, inject bogus
+loops, write ``init_*``; build the robust problem (baseline, DCS or
+switchable constraints) with the gauge at pose 0; LM solve; the DCS
+psi-consensus rescue and the GNC auto-retry; report (with per-stage times
+on request); write ``opt_*`` and, for method 2, ``switches.txt``.  Host
+work (ingestion, init, masks, the rescue's random half-subsets) stays in
+NumPy; the solves run on the chosen device.
 
 Dropped TPU workarounds: incidence selection and chain compression, the
 program-sharing ``rescue_ready`` lanes (the plain solve runs first, then
@@ -24,7 +25,7 @@ import numpy as np
 import torch
 
 from slam_tpu_torch import runtime
-from slam_tpu_torch.config import RunConfig, SolverConfig, \
+from slam_tpu_torch.config import METHOD_SC, RunConfig, SolverConfig, \
     solver_config_for_method
 from slam_tpu_torch.graph import PoseGraph
 from slam_tpu_torch.io import g2o
@@ -74,7 +75,7 @@ class Problem(NamedTuple):
     free: FreeMask
     poses0: torch.Tensor
     switches0: torch.Tensor
-    partition: object  # SchurPartition (schur) or SegmentPlan (dense)
+    partition: object  # SchurPartition (schur), dense plan, None (pcg)
 
 
 def setup_problem(
@@ -84,7 +85,7 @@ def setup_problem(
     device: str | torch.device | None = None,
 ) -> Problem:
     """Initial guess, bucket-padded EdgeSet, gauge and linear-solver plan
-    of a method-0/1 solve of ``graph``."""
+    of a method-0/1/2 solve of ``graph``."""
     from slam_tpu_torch.solver.init import apply_init
 
     runtime.require_type(graph, PoseGraph, "graph")
@@ -107,7 +108,7 @@ def setup_problem(
     # Switch variables initialised to 1.0 (``main.cpp:117``).
     switches0 = torch.ones((edges.num_edges,), dtype=dtype, device=dev)
 
-    partition = None  # lm_solve names a solver that is not ported
+    partition = None  # pcg needs no plan
     if scfg.linear_solver == "schur":
         from slam_tpu_torch.solver.schur import build_partition, \
             choose_partition
@@ -127,7 +128,7 @@ def setup_problem(
             scheme=("graph" if node_block is not None else "index"),
         )
     elif scfg.linear_solver == "dense":
-        partition = linear.dense_plan(edges)
+        partition = linear.dense_plan(edges, switches=scfg.robust == "sc")
     return Problem(scfg, canon, edges, free, poses0, switches0, partition)
 
 
@@ -137,14 +138,10 @@ def run_global_solve(
     logger: RunLogger | None = None,
     device: str | torch.device | None = None,
 ) -> GlobalSolveOutput:
-    """Solve a (possibly outlier-injected) graph with method 0 or 1."""
-    if cfg.method not in (0, 1):
+    """Solve a (possibly outlier-injected) graph with method 0, 1 or 2."""
+    if cfg.method not in (0, 1, 2):
         raise NotImplementedError(
-            f"method {cfg.method} is not ported yet (ROADMAP A9 for 2, "
-            "A14 for 3/4)")
-    if cfg.report_stages:
-        raise NotImplementedError(
-            "per-stage timing is not ported yet (ROADMAP A10)")
+            f"method {cfg.method} is not ported yet (ROADMAP A14)")
     logger = logger or RunLogger()
     prob = setup_problem(graph, cfg, logger, device)
     scfg, edges, model = prob.scfg, prob.edges, SE2Model
@@ -256,9 +253,14 @@ def run_global_solve(
         linear_iters=int(res.lin_iters),
         wall_s=wall,
     )
-    from slam_tpu_torch.solver.report import build_report
+    from slam_tpu_torch.solver.report import build_report, measure_stages
 
-    report = build_report(res, scfg, wall)
+    stage_times = None
+    if cfg.report_stages:
+        stage_times = measure_stages(res.poses, res.switches, edges,
+                                     prob.free, scfg, model,
+                                     partition=prob.partition)
+    report = build_report(res, scfg, wall, stage_times)
     logger.log("report", **report.fields())
     print(report.text())
     return GlobalSolveOutput(
@@ -289,9 +291,37 @@ def run_from_config(cfg: RunConfig,
         g2o.write_nodes(os.path.join(cfg.save_path, "opt_nodes.txt"),
                         out.poses)
         g2o.write_edges(os.path.join(cfg.save_path, "opt_edges.txt"), graph)
+        if cfg.method == METHOD_SC:
+            _write_switches(cfg, graph, out)
     finally:
         logger.close()
     return out
+
+
+def _write_switches(cfg: RunConfig, graph: PoseGraph,
+                    out: GlobalSolveOutput) -> None:
+    """``switches.txt`` of a method-2 solve: the loop edges' switches in
+    canonical order; for ``sc_varpro``, which eliminated them, ``s*`` of
+    the final residuals."""
+    canon = graph.canonical_order()
+    loop_mask = canon.edge_type != 0
+    scfg = solver_config_for_method(cfg.method, cfg.solver)
+    if scfg.robust == "sc_varpro":
+        from slam_tpu_torch.geometry import se2
+        from slam_tpu_torch.robust.kernels import sc_varpro_switch
+
+        poses = torch.as_tensor(out.poses, dtype=torch.float64)
+        ij = torch.as_tensor(canon.edges_ij, dtype=torch.int64)
+        e = se2.residual(poses[ij[:, 0]], poses[ij[:, 1]],
+                         torch.as_tensor(canon.edges_meas,
+                                         dtype=torch.float64))
+        sw = sc_varpro_switch(e, scfg.sc_prior_lambda).numpy()[
+            loop_mask]
+    else:
+        # out.switches covers the bucket-padded edge list, real edges first.
+        sw = out.switches[: loop_mask.shape[0]][loop_mask]
+    g2o.write_switches(os.path.join(cfg.save_path, "switches.txt"), graph,
+                       priors=np.ones_like(sw), optimized=sw)
 
 
 def _counts(g: PoseGraph) -> dict:

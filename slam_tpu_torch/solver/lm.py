@@ -60,32 +60,56 @@ def _gnc_phi(cfg: SolverConfig, it: int) -> float:
 
 def linear_plan(cfg: SolverConfig, edges: EdgeSet, partition=None):
     """What the configured linear solver needs besides the system: the
-    Schur partition, or the dense assembly plan (built when not given)."""
-    if cfg.robust == "sc":
-        raise NotImplementedError(
-            "joint switch unknowns (method 2) are not ported yet "
-            "(ROADMAP A9)")
+    Schur partition; the dense assembly plan (pose-only, or the joint one
+    for ``robust="sc"``), built when not given; nothing for PCG."""
     if cfg.linear_solver == "dense":
-        return partition if partition is not None \
-            else linear.dense_plan(edges)
+        joint = cfg.robust == "sc"
+        if partition is None:
+            return linear.dense_plan(edges, switches=joint)
+        if isinstance(partition, linear.JointPlan) != joint:
+            raise ValueError("the dense plan does not match robust="
+                             f"{cfg.robust!r} (see linear.dense_plan)")
+        return partition
     if cfg.linear_solver == "schur":
         if partition is None:
             raise ValueError("linear_solver='schur' requires a partition")
         return partition
-    raise NotImplementedError(
-        f"linear solver {cfg.linear_solver!r} is not ported yet "
-        "(ROADMAP A13/A16)")
+    if cfg.linear_solver == "pcg":
+        return None
+    if cfg.linear_solver == "woodbury":
+        raise NotImplementedError(
+            "linear solver 'woodbury' is not ported yet (ROADMAP A16)")
+    raise ValueError(f"unknown linear solver {cfg.linear_solver!r}")
 
 
-def _solve_linear(system, edges, lam, cfg: SolverConfig, plan):
+def _solve_linear(system, edges, lam, cfg: SolverConfig,
+                  plan) -> tuple[linear.Update, int]:
+    """The step and its inner (CG) iterations, 0 for the direct solvers.
+    Joint SC on the Schur solver eliminates the switches first and
+    recovers them by substitution."""
     if cfg.linear_solver == "dense":
-        return linear.dense_solve(system, edges, lam, plan)
+        return linear.dense_solve(system, edges, lam, plan), 0
+    if cfg.linear_solver == "pcg":
+        return linear.pcg_solve(system, edges, lam,
+                                max_iters=cfg.pcg_max_iters,
+                                rtol=cfg.pcg_rtol,
+                                preconditioner=cfg.pcg_preconditioner)
     from slam_tpu_torch.solver import schur
 
-    return schur.schur_solve(system, edges, plan, lam,
-                             blocked=cfg.schur_blocked, panel=cfg.schur_panel,
-                             panel_inner=cfg.schur_panel_inner,
-                             pallas_micro=cfg.schur_pallas_micro)
+    backsub = None
+    if cfg.robust == "sc":
+        # As in the JAX package, schur_solve assembles from the Jacobians
+        # and reads only the diagonal of the reduced Hdiag (its damping and
+        # scale): the elimination's couplings do not reach the step
+        # (ROADMAP C, reference-side fault 8).
+        system, backsub = linear.eliminate_switches(system, edges, lam)
+    dx = schur.schur_solve(system, edges, plan, lam,
+                           blocked=cfg.schur_blocked, panel=cfg.schur_panel,
+                           panel_inner=cfg.schur_panel_inner,
+                           pallas_micro=cfg.schur_pallas_micro)
+    if backsub is not None:
+        dx = dx._replace(switches=backsub(dx.poses))
+    return dx, 0
 
 
 def _cost_kw(cfg: SolverConfig, model) -> dict:
@@ -95,14 +119,14 @@ def _cost_kw(cfg: SolverConfig, model) -> dict:
 
 
 def _propose(s: LMState, edges, free, cfg, model, plan, kw, gnc):
-    """One linearise-solve-retract step from ``s``: returns the candidate
-    and the model's predicted reduction."""
+    """One linearise-solve-retract step from ``s``: returns the candidate,
+    the model's predicted reduction and the solve's inner iterations."""
     kw_t = dict(kw, dcs_phi=_gnc_phi(cfg, s.it))
     system = linearize(s.poses, s.switches, edges, free, **kw_t)
     # Under GNC the objective changes each iteration; compare at the
     # current phi (system.cost is the objective at s.poses and phi_t).
     prev_cost = system.cost if gnc else s.cost
-    dx = _solve_linear(system, edges, s.lam, cfg, plan)
+    dx, inner = _solve_linear(system, edges, s.lam, cfg, plan)
     new_poses = model.retract(s.poses, dx.poses)
     new_switches = s.switches + dx.switches
     new_cost = cost_only(new_poses, new_switches, edges, **kw_t)
@@ -112,7 +136,7 @@ def _propose(s: LMState, edges, free, cfg, model, plan, kw, gnc):
     model_red = 0.5 * (
         torch.sum(dx.poses * (damp * dx.poses - system.g))
         + torch.sum(dx.switches * (ds * dx.switches - system.gs)))
-    return new_poses, new_switches, new_cost, prev_cost, model_red
+    return new_poses, new_switches, new_cost, prev_cost, model_red, inner
 
 
 def _init_state(poses0, switches0, cost0, cfg, lam0=None, nu0=None,
@@ -154,8 +178,8 @@ def lm_solve(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
     cost0 = cost_only(poses0, switches0, edges, **kw)
     s = _init_state(poses0, switches0, cost0, cfg)
     while s.it < cfg.max_iterations:
-        new_poses, new_switches, new_cost, prev_cost, model_red = _propose(
-            s, edges, free, cfg, model, plan, kw, gnc)
+        new_poses, new_switches, new_cost, prev_cost, model_red, inner = \
+            _propose(s, edges, free, cfg, model, plan, kw, gnc)
         rho = (prev_cost - new_cost) / torch.clamp(model_red, min=1e-30)
         accept = new_cost < prev_cost
         factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
@@ -175,7 +199,7 @@ def lm_solve(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
             it=s.it + 1,
             accepted=s.accepted + accept.to(torch.int64),
             converged=converged,
-            lin_iters=s.lin_iters,
+            lin_iters=s.lin_iters + inner,
         )
         if bool(converged.item()):
             break
@@ -198,8 +222,8 @@ def lm_fixed_iters(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
     cost0 = cost_only(poses0, switches0, edges, **kw)
     s = _init_state(poses0, switches0, cost0, cfg, lam0, nu0, it0)
     for _ in range(num_iters):
-        new_poses, new_switches, new_cost, prev_cost, model_red = _propose(
-            s, edges, free, cfg, model, plan, kw, gnc)
+        new_poses, new_switches, new_cost, prev_cost, model_red, inner = \
+            _propose(s, edges, free, cfg, model, plan, kw, gnc)
         lam_rej = torch.clamp(s.lam * s.nu, max=cfg.max_lambda)
         if ceres:
             # Stock-Ceres acceptance and accepted-radius update (see the
@@ -221,6 +245,6 @@ def lm_fixed_iters(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
             it=s.it + 1,
             accepted=s.accepted + accept.to(torch.int64),
             converged=s.converged,
-            lin_iters=s.lin_iters,
+            lin_iters=s.lin_iters + inner,
         )
     return _result(s, cost0)

@@ -61,12 +61,18 @@ class EdgeSet(NamedTuple):
         E = self.num_edges
         return both[:E], both[E:]
 
+    def endpoint_sums(self, *pairs) -> list[Tensor]:
+        """``segment_sum(va, a), segment_sum(vb, b)`` of every per-edge
+        pair ``(va, vb)``, in order, all in one ``scatter_add_rows``
+        launch."""
+        return scatter_add_groups([(v, plan) for va, vb in pairs
+                                   for v, plan in ((va, self.plan_a),
+                                                   (vb, self.plan_b))])
+
     def node_sums(self, *pairs) -> list[Tensor]:
         """``segment_sum(va, a) + segment_sum(vb, b)`` of every per-edge
         pair ``(va, vb)``, all sums in one ``scatter_add_rows`` launch."""
-        sums = scatter_add_groups([(v, plan) for va, vb in pairs
-                                   for v, plan in ((va, self.plan_a),
-                                                   (vb, self.plan_b))])
+        sums = self.endpoint_sums(*pairs)
         return [sums[2 * k] + sums[2 * k + 1] for k in range(len(pairs))]
 
 

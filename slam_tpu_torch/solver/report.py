@@ -1,10 +1,15 @@
 """Structured per-solve report -- the Ceres ``Summary::FullReport()``
-analog.  Port of ``slam_tpu/solver/report.py:32-106``; per-stage timing
-(``measure_stages``) is ROADMAP A10."""
+analog.  Port of ``slam_tpu/solver/report.py``: termination, step counts
+and costs come from the :class:`LMResult`; per-stage times (linearize /
+linear solve / retract+cost) from :func:`measure_stages`, one call of each
+stage at the final iterate (CLI ``--report-stages``)."""
 
 from __future__ import annotations
 
 import dataclasses
+import time
+
+import torch
 
 
 @dataclasses.dataclass
@@ -81,3 +86,51 @@ def build_report(res, scfg, wall_s: float,
         wall_s=wall_s,
         stage_times_s=stage_times,
     )
+
+
+def measure_stages(poses, switches, edges, free, scfg, model,
+                   partition=None, reps: int = 2) -> dict:
+    """Seconds of one call of each stage at the final iterate: linearize,
+    linear solve (at ``init_lambda``) and retract+cost; the best of
+    ``reps`` after a warm-up call.  On CUDA, CUDA events around each call
+    on an idle stream (so the time includes the host's enqueueing); on
+    the CPU, the wall clock."""
+    from slam_tpu_torch.solver.lm import _cost_kw, _solve_linear, \
+        linear_plan
+    from slam_tpu_torch.solver.linearize import cost_only, linearize
+
+    kw = _cost_kw(scfg, model)
+    plan = linear_plan(scfg, edges, partition)
+    lam = torch.as_tensor(scfg.init_lambda, dtype=poses.dtype,
+                          device=poses.device)
+    cuda = poses.device.type == "cuda"
+    times: dict[str, float] = {}
+
+    def timed(name, fn):
+        best, out = float("inf"), None
+        for r in range(reps + 1):  # call 0 warms up
+            if cuda:
+                torch.cuda.synchronize(poses.device)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn()
+                end.record()
+                end.synchronize()
+                dt = start.elapsed_time(end) / 1e3
+            else:
+                t0 = time.perf_counter()
+                out = fn()
+                dt = time.perf_counter() - t0
+            if r > 0:
+                best = min(best, dt)
+        times[name] = best
+        return out
+
+    system = timed("linearize", lambda: linearize(poses, switches, edges,
+                                                  free, **kw))
+    dx, _ = timed("linear_solve", lambda: _solve_linear(system, edges, lam,
+                                                        scfg, plan))
+    timed("retract_cost", lambda: cost_only(
+        model.retract(poses, dx.poses), switches + dx.switches, edges, **kw))
+    return times

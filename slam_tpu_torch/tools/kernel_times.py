@@ -1,12 +1,15 @@
 """Per-launch times of the kernels at every shape the LM iteration gives them.
 
     python -m slam_tpu_torch.tools.kernel_times [--reps 50]
+        [--robust dcs|sc|sc_varpro] [--linear-solver schur|dense|pcg]
 
-For INTEL+50 (plain DCS, native Schur) and M10000+50, float32, it records
-every kernel wrapper call of a one-iteration ``lm_fixed_iters`` run (the
-initial cost plus one iteration; and the first ``micro_chol_inv`` call of
-a blocked run), then replays each distinct call on its own and prints one
-JSON line per call:
+For INTEL+50 and M10000+50 under ``--robust`` (plain DCS by default, or
+method 2's joint switches or their variable projection) on the native
+Schur solver, or INTEL+50 alone on the dense or the PCG solver, float32,
+it records every kernel wrapper call of a one-iteration ``lm_fixed_iters``
+run (the initial cost plus one iteration; and on the Schur solver the
+first ``micro_chol_inv`` call of a blocked run), then replays each
+distinct call on its own and prints one JSON line per call:
 
 - ``ms``: CUDA events around ``reps`` back-to-back calls, as chip_smoke
   times a kernel; the device waits for the host whenever the host is
@@ -368,35 +371,41 @@ def record_iteration(args, cfg, part, blocked_cfg=None):
 
 
 def main(argv=None) -> int:
+    from slam_tpu_torch.tools.problems import ROBUST, SOLVERS
+
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--robust", default="dcs", choices=ROBUST)
+    ap.add_argument("--linear-solver", default="schur", choices=SOLVERS)
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
         return 1
     from slam_tpu_torch import runtime
-    from slam_tpu_torch.tools.problems import CONFIGS, intel50_plain_dcs, \
+    from slam_tpu_torch.tools.problems import CONFIGS, intel50_plain, \
         m10000
 
     device = runtime.setup_device("cuda")
     peaks = card_peaks()
     card = nvidia_smi()
-    prob = intel50_plain_dcs(device, "float32")
-    m = m10000(device, torch.float32)
-    cases = {
-        "INTEL": ((prob.poses0, prob.switches0, prob.edges, prob.free),
-                  prob.scfg, prob.partition),
-        "M10000": (m.args, m.cfg, m.partition),
-    }
+    schur = opts.linear_solver == "schur"
+    prob = intel50_plain(device, "float32", opts.robust, opts.linear_solver)
+    cases = {"INTEL": ((prob.poses0, prob.switches0, prob.edges, prob.free),
+                       prob.scfg, prob.partition)}
+    if schur:
+        m = m10000(device, torch.float32, opts.robust)
+        cases["M10000"] = (m.args, m.cfg, m.partition)
     measured = []
     for label, (lm_args, cfg, part) in cases.items():
         calls, counts, names = record_iteration(
-            lm_args, cfg, part, cfg.replace(**CONFIGS["blocked_micro"]))
+            lm_args, cfg, part,
+            cfg.replace(**CONFIGS["blocked_micro"]) if schur else None)
         measured.append((label, counts,
                          *measure_calls(calls, names, peaks, opts.reps)))
     for label, counts, rows, fns in measured:
         add_device_times(rows, fns, opts.reps)
-        print(json.dumps({"shape": label, "card": card,
+        print(json.dumps({"shape": label, "robust": opts.robust,
+                          "linear_solver": opts.linear_solver, "card": card,
                           "torch": torch.__version__,
                           "launches_per_run": counts}), flush=True)
         for row in rows:

@@ -206,6 +206,8 @@ def test_port_sources_import_no_slam_tpu():
     files = sorted((REPO / "slam_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 30
+    for new in ("solver/tridiag.py", "solver/linear.py", "solver/report.py"):
+        assert REPO / "slam_tpu_torch" / new in files, new
     bad = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
            for f in files for m in _JAX_IMPORT.finditer(f.read_text())]
     assert not bad, bad
