@@ -12,8 +12,10 @@ the script exits non-zero and prints no result line):
 2. each kernel against its plain PyTorch version on the card, in float32
    and float64:
    - every gather and scatter launch of one LM iteration of INTEL+50 and
-     M10000+50 (real poses and edges), and of INTEL+50 under method 2 on
-   the Schur, dense and PCG solvers, recorded and replayed: each
+     M10000+50 (real poses and edges), of INTEL+50 under method 2 on
+     the Schur, dense and PCG solvers, and of the sphere2500 recipe
+     (SE(3), D = 6) under the native and the blocked Schur
+     factorisation, recorded and replayed: each
      gather bitwise equal to ``index_select``; each grouped scatter
      launch bitwise equal to itself run again and to its groups launched
      one at a time, and within TOL of its plain version;
@@ -24,8 +26,9 @@ the script exits non-zero and prints no result line):
    - ``micro_chol_inv`` on SPD batches of (16, 128, 128) and
      (32, 128, 128), of 48 and 80 such panels (where the kernel takes 2
      and 1 CTAs a matrix), and on real panels: the first and the trailing
-     diagonal panel of the equilibrated Schur interiors of INTEL+50 and
-     M10000+50 at their initial poses, lambda = 1e-4; L bitwise equal to
+     diagonal panel of the equilibrated Schur interiors of INTEL+50,
+     M10000+50 and the sphere2500 recipe (D = 6, D ni = 3450) at their
+     initial poses, lambda = 1e-4; L bitwise equal to
      the plain version's, the inverse within TOL (SPD) or RESID_FACTOR
      (real panels);
 3. the main path through the CLI, ``INTEL 50 1 --seed 42`` (auto init,
@@ -63,7 +66,22 @@ the script exits non-zero and prints no result line):
    (at most ``PCG_LAUNCH_LIMIT`` gathers and scatters);
    (e) ``report_stages``: the method-2 CLI with ``--report-stages``,
    three positive, finite stage times;
-8. the kernels' times, after the end-to-end phases and with every
+8. SE(3) and the golden cells, float32:
+   (a) ``se3_path``: ``sphere2500 50 1 --seed 0`` through the CLI (auto
+   init, auto solver = Schur, 2 index blocks): ATE against the golden
+   trajectory below ``SE3_ATE_GATE_M``, wall seconds, iterations and
+   launches;
+   (b) ``se3_ab``: the sphere2500 recipe of ``bench.py``'s sphere row (20
+   corrupted closures, plain DCS, Schur with 4 index blocks, 30
+   ``lm_fixed_iters``) under the native, blocked-plain-panel and
+   blocked-kernel factorisations, in turns, each final cost against its
+   float64 JAX reference within ``SE3_REF_COST_RTOL`` and at most
+   ``SCALE_COST_FRAC`` x initial; the blocked-kernel run launches
+   ``micro_chol_inv``;
+   (c) ``golden``: the dense-solver golden cells of
+   ``tests/test_golden.py`` (CSAIL clean, CSAIL+50 seed 42 DCS, INTEL
+   clean; 40 iterations of ``lm_solve``) at their ATE and cost bounds;
+9. the kernels' times, after the end-to-end phases and with every
    profiler session last, since one leaves the later host-bound calls of
    its process slower (``[kernels]`` lines, float32; and
    ``micro_chol_inv`` in float64): per launch and per plan of the
@@ -140,6 +158,27 @@ M2_LAUNCH_LIMITS = {"gather_rows": 7, "scatter_add_rows": 5}
 # Gathers and scatters per CG iteration of a PCG run: one each per matvec,
 # and a few per LM iteration outside the CG loop.
 PCG_LAUNCH_LIMIT = 1.05
+# SE(3): the sphere2500 CLI run's ATE against its golden, the basin bound
+# of tests/test_golden.py's blanket gate over the outlier goldens.
+SE3_ATE_GATE_M = 1.0
+# The sphere2500 recipe's gates: against its float64 references, twice the
+# largest |relative difference| of float32 over the three factorisations,
+# the initial poses and the perturbed copies, on the card and on the CPU
+# (python -m slam_tpu_torch.tools.f32_spread --problem sphere2500
+# --perturb 16, and --device cpu --perturb 4); PERF.md gives both.  f32
+# lands up to half the cost away from f64 on this recipe (f64 under the
+# same input noise moves by 6.6e-4), so this gate only catches a lost
+# solve, and each factorisation must also bring the cost to
+# SCALE_COST_FRAC x initial.
+SE3_REF_COST_RTOL = 1.02       # 4.96e-1 / 5.09e-1
+# The golden cells of tests/test_golden.py:46-76 on the dense solver:
+# (dataset, outliers, seed, robust, ATE bound m, cost bound factor and
+# offset on the golden's recorded final cost).
+GOLDEN_CELLS = {
+    "CSAIL_0out_seed0": ("CSAIL", 0, 0, "none", 0.05, 2.0, 0.05),
+    "CSAIL_50out_seed42": ("CSAIL", 50, 42, "dcs", 0.10, 1.5, 0.0),
+    "INTEL_0out_seed0": ("INTEL", 0, 0, "none", 0.05, 2.0, 0.05),
+}
 PANEL = 128               # schur_panel of the blocked path
 KERNEL_INFO = {  # name: (source, TPU kernel it replaces, phase that runs it)
     "gather_rows": ("slam_tpu_torch/csrc/gather.cu",
@@ -163,6 +202,9 @@ PHASE_KERNELS = {
     "pcg_dcs": ("gather_rows", "scatter_add_rows", "fused_linearize_se2"),
     "pcg_sc": ("gather_rows", "scatter_add_rows"),
     "report_stages": ("gather_rows", "scatter_add_rows"),
+    "se3_path": ("gather_rows", "scatter_add_rows"),
+    "se3_ab": ("gather_rows", "scatter_add_rows", "micro_chol_inv"),
+    "golden": ("gather_rows", "scatter_add_rows", "fused_linearize_se2"),
 }
 # Launches per LM iteration of native INTEL plain DCS (phase 6d): one
 # gather per source outside the linearisation (which reads its endpoints
@@ -208,12 +250,13 @@ def real_panels(edges, free, poses, part) -> dict:
     at ``poses`` and lambda = 1e-4."""
     from slam_tpu_torch.solver import blocked_chol as bc
     from slam_tpu_torch.solver.linearize import linearize
-    from slam_tpu_torch.solver.models import SE2Model
+    from slam_tpu_torch.solver.models import model_for_dim
     from slam_tpu_torch.solver.schur import assemble
 
     sw = torch.ones((edges.num_edges,), dtype=poses.dtype,
                     device=poses.device)
-    system = linearize(poses, sw, edges, free, model=SE2Model, robust="dcs",
+    system = linearize(poses, sw, edges, free,
+                       model=model_for_dim(poses.shape[-1]), robust="dcs",
                        dcs_phi=0.5, huber_delta=0.01, sc_prior_lambda=1.0)
     A = assemble(system, part, torch.tensor(1e-4, dtype=poses.dtype,
                                             device=poses.device)).A
@@ -393,7 +436,7 @@ def time_chol(A, err: float, peaks, summary):
 
 
 def phase_kernel_times(timings: list) -> None:
-    """Phase 8: the host-sensitive times of every job first, then all the
+    """Phase 9: the host-sensitive times of every job first, then all the
     device times under torch.profiler (a profiler session leaves the
     later host-bound calls of its process slower), then the lines."""
     from slam_tpu_torch.tools import kernel_times as kt
@@ -420,7 +463,7 @@ def phase_kernels(device, peaks, timings: list) -> dict:
     from slam_tpu_torch.solver import linear
     from slam_tpu_torch.tools import kernel_times as kt
     from slam_tpu_torch.tools.problems import CONFIGS, intel50, \
-        intel50_plain, m10000
+        intel50_plain, m10000, sphere2500
 
     summary = {}
     for dtype in (torch.float32, torch.float64):
@@ -528,6 +571,34 @@ def phase_kernels(device, peaks, timings: list) -> dict:
                 checked_calls=len(calls),
                 scatter_max_abs_err=check_launches(calls, label, name),
                 launches_per_run=json.dumps(counts))
+
+        # SE(3), D = 6: one iteration of the sphere2500 recipe under the
+        # native and the blocked factorisation (in float32 the blocked
+        # iteration's panels go through micro_chol_inv), and the real
+        # panels of its interiors.
+        sph = sphere2500(device, dtype)
+        for cname in ("native", "blocked_micro"):
+            cfg = sph.cfg.replace(**CONFIGS[cname])
+            calls, counts, names = kt.record_iteration(sph.args, cfg,
+                                                       sph.partition)
+            label = f"sphere2500-{cname}"
+            log("kernels", shape=label, dtype=name,
+                edges=sph.args[2].num_edges, nodes=sph.graph.num_nodes,
+                checked_calls=len(calls),
+                scatter_max_abs_err=check_launches(calls, label, name),
+                launches_per_run=json.dumps(counts))
+            if dtype == torch.float32:
+                timings.append(functools.partial(
+                    time_launches, label, calls, names, peaks, None,
+                    summary))
+        poses, _, edges, free = sph.args
+        panels = real_panels(edges, free, poses, sph.partition)
+        log("kernels", panels="sphere2500", dtype=name,
+            blocks=sph.partition.num_blocks, interior_dim=panels["n"],
+            padded=panels["n_pad"])
+        for which in ("first", "trailing"):
+            check_chol(f"sphere2500-{which}", panels[which], name,
+                       "residual")
 
         # SPD batches at the path's panel counts (16 INTEL, 32 M10000),
         # timed; and at larger batches, where the kernel takes 2 and 1
@@ -1010,6 +1081,118 @@ def phase_report_stages(smi: str) -> dict:
     return counts
 
 
+def phase_se3_path(smi: str) -> dict:
+    """Phase 8a: ``sphere2500 50 1 --seed 0`` through the CLI."""
+    from slam_tpu_torch import cli
+    from slam_tpu_torch.eval import metrics
+
+    got = {}
+
+    def run(save):
+        if cli.main(["sphere2500", "50", "1", "--seed", "0", "--save-path",
+                     save]) != 0:
+            raise AssertionError("se3_path: cli.main failed")
+        got["solve"] = log_record(os.path.join(save, "method1.log"),
+                                  "solve")
+
+    counts, wall, poses = run_cli_path("se3_path", run)
+    golden = np.load(os.path.join(REPO, "results", "golden",
+                                  "sphere2500_50out_seed0.npy"))
+    if poses.shape != golden.shape or not np.isfinite(poses).all():
+        raise AssertionError(f"se3_path: opt_nodes {poses.shape} or "
+                             "non-finite")
+    ate = metrics.ate(poses, golden)
+    solve, ref = got["solve"], reference("sphere2500_50_1_cli")
+    iters = int(solve["iterations"])
+    log("se3_path", wall_s=round(wall, 3), ate_vs_golden_m=ate,
+        gate_m=SE3_ATE_GATE_M, reference_f64_ate_m=ref["ate_vs_golden_m"],
+        final_cost=float(solve["final_cost"]),
+        reference_f64=ref["final_cost"], iterations=iters,
+        accepted=int(solve["accepted"]), launches=json.dumps(counts),
+        card=json.dumps(smi))
+    if not ate < SE3_ATE_GATE_M:
+        raise AssertionError(f"se3_path: ATE {ate} m >= {SE3_ATE_GATE_M} m")
+    require_launches("se3_path", counts)
+    return counts
+
+
+def phase_se3_ab(device, smi: str) -> dict:
+    """Phase 8b: the sphere2500 recipe under the three factorisations."""
+    from slam_tpu_torch.tools.problems import SPHERE_ITERS, sphere2500, \
+        sphere_reference_key
+
+    case = sphere2500(device, torch.float32)
+    runs = lm_in_turns("se3_ab", "sphere2500", case.args, case.cfg,
+                       case.partition, SPHERE_ITERS, smi)
+    for name, rs in runs.items():
+        cost = rs[0][3]
+        key = sphere_reference_key(name)
+        rel = held_to(f"se3_ab {name}", cost, key, SE3_REF_COST_RTOL)
+        cost0 = float(rs[0][0].initial_cost)
+        log("se3_ab", shape="sphere2500", config=name,
+            reference_f64=reference(key)["final_cost"], rel_diff=rel,
+            gate=SE3_REF_COST_RTOL, cost_frac=cost / cost0,
+            gate_frac=SCALE_COST_FRAC)
+        if not cost <= SCALE_COST_FRAC * cost0:
+            raise AssertionError(f"se3_ab {name}: cost {cost} > "
+                                 f"{SCALE_COST_FRAC} x {cost0}")
+    micro = runs["blocked_micro"][0][2]
+    require_launches("se3_ab", micro)
+    return micro
+
+
+def phase_golden(device, smi: str) -> dict:
+    """Phase 8c: the dense-solver golden cells."""
+    from slam_tpu_torch import ops
+    from slam_tpu_torch.config import SolverConfig
+    from slam_tpu_torch.eval import metrics
+    from slam_tpu_torch.io import g2o
+    from slam_tpu_torch.solver.lm import lm_solve
+    from slam_tpu_torch.solver.problem import anchor_first_node, \
+        edge_set_from_graph
+
+    with open(os.path.join(REPO, "results", "golden", "meta.json")) as f:
+        meta = json.load(f)
+    total = {}
+    for key, (name, outliers, seed, robust, max_ate, factor, offset) \
+            in GOLDEN_CELLS.items():
+        g = g2o.load_g2o(g2o.find_dataset(name))
+        g = g.add_random_outliers(outliers, seed=seed)
+        edges = edge_set_from_graph(g, dtype=torch.float32, device=device)
+        cfg = SolverConfig(robust=robust, linear_solver="dense",
+                           dtype="float32", max_iterations=40)
+        args = (torch.as_tensor(g.poses, dtype=torch.float32,
+                                device=device),
+                torch.ones((edges.num_edges,), dtype=torch.float32,
+                           device=device),
+                edges, anchor_first_node(g.num_nodes, dtype=torch.float32,
+                                         device=device))
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = lm_solve(*args, cfg)
+        poses = res.poses.cpu().numpy()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        ate = metrics.ate(poses, np.load(os.path.join(
+            REPO, "results", "golden", f"{key}.npy")))
+        cost = float(res.cost)
+        cost_gate = factor * meta[key]["final_cost"] + offset
+        log("golden", cell=key, ate_m=ate, gate_m=max_ate, final_cost=cost,
+            cost_gate=cost_gate, iterations=int(res.iterations),
+            accepted=int(res.accepted), wall_s=round(wall, 3),
+            launches=json.dumps(counts), card=json.dumps(smi))
+        if not (np.isfinite(poses).all() and ate < max_ate):
+            raise AssertionError(f"golden {key}: ATE {ate} m >= {max_ate}")
+        if not cost < cost_gate:
+            raise AssertionError(f"golden {key}: cost {cost} >= "
+                                 f"{cost_gate}")
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+    require_launches("golden", total)
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -1051,6 +1234,9 @@ def main() -> int:
         ("method2_ab", lambda: phase_method2_ab(device, smi)),
         ("pcg", lambda: phase_pcg(device, smi)),
         ("report_stages", lambda: phase_report_stages(smi)),
+        ("se3_path", lambda: phase_se3_path(smi)),
+        ("se3_ab", lambda: phase_se3_ab(device, smi)),
+        ("golden", lambda: phase_golden(device, smi)),
         ("kernel_times", lambda: phase_kernel_times(timings)),
     ]
     out = {}
@@ -1064,7 +1250,9 @@ def main() -> int:
                 "blocked_path": out["blocked"], **out["method2_path"],
                 "method2_dense": out["method2_dense"],
                 "method2_ab": out["method2_ab"], **out["pcg"],
-                "report_stages": out["report_stages"]}
+                "report_stages": out["report_stages"],
+                "se3_path": out["se3_path"], "se3_ab": out["se3_ab"],
+                "golden": out["golden"]}
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[path][k], **out["kernels"][k],

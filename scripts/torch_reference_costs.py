@@ -13,7 +13,15 @@ Runs the JAX package on the CPU in float64 on the problems that
   plain DCS and joint SC on PCG with the tridiagonal preconditioner, 10;
 - the command-line run of method 2, ``INTEL 50 2 --seed 42``, and of
   ``--sc-varpro``: final cost, steps, and the count of loop edges whose
-  switch in ``switches.txt`` is below 0.5.
+  switch in ``switches.txt`` is below 0.5;
+- sphere2500 (SE(3)) under the recipe of ``bench.py``'s sphere row (20
+  closures corrupted, plain DCS, Schur with 4 index blocks, 30
+  ``lm_fixed_iters``), with the native and the panel-blocked (panel 128)
+  factorisation, the partition over the edge set's own order; and once
+  with the partition over the order ``bench.py`` gives it (the edges
+  before the bogus ones move to the end), which is not the edge set's;
+- the command-line run ``sphere2500 50 1 --seed 0``: final cost, steps,
+  and the ATE against ``results/golden/sphere2500_50out_seed0.npy``.
 
     JAX_PLATFORMS=cpu python scripts/torch_reference_costs.py
 """
@@ -137,6 +145,78 @@ def cli_run(robust: str) -> dict:
     }
 
 
+SPHERE_ITERS = 30
+
+
+def sphere_recipe(blocked: bool = False, bench_order: bool = False) -> dict:
+    """The sphere2500 recipe in float64 (see the module docstring)."""
+    import dataclasses
+
+    from slam_tpu.solver.models import SE3Model
+
+    g = g2o.load_g2o(str(REPO / "data" / "sphere2500.g2o")).canonical_order()
+    meas = g.edges_meas.copy()
+    rng = np.random.default_rng(5)
+    loop_idx = np.where(g.edge_type != 0)[0]
+    bad = rng.choice(loop_idx, size=20, replace=False)
+    meas[bad, :3] += rng.normal(0, 20.0, (20, 3))
+    etype = g.edge_type.copy()
+    etype[bad] = 2
+    dirty = dataclasses.replace(g, edges_meas=meas, edge_type=etype)
+    canon = dirty.canonical_order()
+    edges = edge_set_from_graph(canon, dtype=jnp.float64, incidence=False)
+    ij = dirty.edges_ij if bench_order else np.asarray(edges.ij)
+    part = build_partition(ij, canon.num_nodes, 4, dtype=jnp.float64)
+    solver = SolverConfig(robust="dcs", linear_solver="schur",
+                          dtype="float64", use_pallas="off",
+                          schur_blocked=blocked, schur_panel=128)
+    res = lm_fixed_iters(
+        jnp.asarray(canon.poses), jnp.ones((edges.num_edges,)), edges,
+        anchor_first_node(canon.num_nodes, dtype=jnp.float64), solver,
+        SPHERE_ITERS, partition=part, model=SE3Model)
+    what = ("panel-blocked (panel 128)" if blocked else "native")
+    order = ("over the edge order before the bogus edges move to the end, "
+             "as bench.py builds it (not the edge set's order)"
+             if bench_order else "over the edge set's order")
+    return {
+        "problem": "sphere2500, 20 loop closures moved by N(0, 20) m "
+                   "(default_rng(5)) and marked bogus, plain DCS, no edge "
+                   "padding, node 0 anchored, Schur with 4 index blocks "
+                   f"{order}, {what} factorisation",
+        "iterations": SPHERE_ITERS,
+        "initial_cost": float(res.initial_cost),
+        "final_cost": float(res.cost),
+        "accepted": int(res.accepted),
+        "dtype": "float64",
+        "backend": BACKEND,
+    }
+
+
+def sphere_cli() -> dict:
+    """``python -m slam_tpu.cli sphere2500 50 1 --seed 0`` in float64."""
+    from slam_tpu.eval import metrics
+
+    with tempfile.TemporaryDirectory() as save:
+        cfg = RunConfig(dataset="sphere2500", num_outliers=50, method=1,
+                        seed=0, save_path=save,
+                        solver=SolverConfig(dtype="float64"))
+        out = run_from_config(cfg)
+    golden = np.load(REPO / "results" / "golden" /
+                     "sphere2500_50out_seed0.npy")
+    res = out.result
+    return {
+        "problem": "python -m slam_tpu.cli sphere2500 50 1 --seed 0 (auto "
+                   "init, auto solver)",
+        "iterations": int(res.iterations),
+        "initial_cost": float(res.initial_cost),
+        "final_cost": float(res.cost),
+        "accepted": int(res.accepted),
+        "ate_vs_golden_m": float(metrics.ate(out.poses, golden)),
+        "dtype": "float64",
+        "backend": BACKEND,
+    }
+
+
 def main() -> int:
     out = {"command": "JAX_PLATFORMS=cpu python "
                       "scripts/torch_reference_costs.py"}
@@ -145,6 +225,13 @@ def main() -> int:
         print(key, out[key]["final_cost"], flush=True)
     for robust in ("sc", "sc_varpro"):
         out[f"intel50_{robust}_cli"] = cli_run(robust)
+    for key, kw in (("sphere2500_dcs_schur_native", {}),
+                    ("sphere2500_dcs_schur_blocked", {"blocked": True}),
+                    ("sphere2500_dcs_schur_bench_partition_order",
+                     {"blocked": False, "bench_order": True})):
+        out[key] = sphere_recipe(**kw)
+        print(key, out[key]["final_cost"], flush=True)
+    out["sphere2500_50_1_cli"] = sphere_cli()
     path = REPO / "slam_tpu_torch" / "data" / "reference_costs.json"
     path.write_text(json.dumps(out, indent=2) + "\n")
     print(json.dumps(out, indent=2))

@@ -32,7 +32,7 @@ from slam_tpu_torch.io import g2o
 from slam_tpu_torch.solver import linear
 from slam_tpu_torch.solver.linearize import cost_only, loop_psi
 from slam_tpu_torch.solver.lm import LMResult, lm_solve
-from slam_tpu_torch.solver.models import SE2Model
+from slam_tpu_torch.solver.models import model_for_dim
 from slam_tpu_torch.solver.problem import EdgeSet, FreeMask, \
     anchor_first_node, edge_set_from_graph
 from slam_tpu_torch.utils.logging import RunLogger
@@ -115,7 +115,8 @@ def setup_problem(
 
         ij = edges.ij.cpu().numpy()
         nblocks, node_block = choose_partition(
-            ij, canon.num_nodes, tangent_dim=SE2Model.tangent_dim,
+            ij, canon.num_nodes,
+            tangent_dim=model_for_dim(graph.dim).tangent_dim,
             scheme=scfg.schur_partition)
         # Over the PADDED edge list: pads self-loop on node 0 (a
         # separator) with zero weight, so they are unowned.
@@ -144,7 +145,8 @@ def run_global_solve(
             f"method {cfg.method} is not ported yet (ROADMAP A14)")
     logger = logger or RunLogger()
     prob = setup_problem(graph, cfg, logger, device)
-    scfg, edges, model = prob.scfg, prob.edges, SE2Model
+    scfg, edges = prob.scfg, prob.edges
+    model = model_for_dim(graph.dim)
     dtype, dev = prob.poses0.dtype, prob.poses0.device
 
     def solve(es, c):
@@ -307,14 +309,13 @@ def _write_switches(cfg: RunConfig, graph: PoseGraph,
     loop_mask = canon.edge_type != 0
     scfg = solver_config_for_method(cfg.method, cfg.solver)
     if scfg.robust == "sc_varpro":
-        from slam_tpu_torch.geometry import se2
         from slam_tpu_torch.robust.kernels import sc_varpro_switch
 
         poses = torch.as_tensor(out.poses, dtype=torch.float64)
         ij = torch.as_tensor(canon.edges_ij, dtype=torch.int64)
-        e = se2.residual(poses[ij[:, 0]], poses[ij[:, 1]],
-                         torch.as_tensor(canon.edges_meas,
-                                         dtype=torch.float64))
+        e = model_for_dim(graph.dim).residual(
+            poses[ij[:, 0]], poses[ij[:, 1]],
+            torch.as_tensor(canon.edges_meas, dtype=torch.float64))
         sw = sc_varpro_switch(e, scfg.sc_prior_lambda).numpy()[
             loop_mask]
     else:

@@ -11,10 +11,13 @@ separator through it (``SolverConfig.schur_blocked``).
 The diagonal panel's factor and inverse are the native
 ``torch.linalg.cholesky_ex`` and ``solve_triangular``, or, with
 ``pallas_micro`` (``SolverConfig.schur_pallas_micro``), the
-``micro_chol_inv`` kernel: one launch for every matrix of the batch, under
-the JAX package's gate (a batch of at least 8, float32, no inner
-blocking).  A panel that is not SPD factors to NaN on either route, as
-``jnp.linalg.cholesky`` does, so the LM loop rejects the step.
+``micro_chol_inv`` kernel: one launch for every matrix of the batch, in
+float32 without inner blocking.  The JAX package also asks for a batch of
+at least 8, since a smaller one leaves most of the TPU kernel's lanes
+idle; the CUDA kernel gives each matrix its own CTAs, so the port takes
+any batch (the sphere2500 interiors are 4).  A panel that is not SPD
+factors to NaN on either route, as ``jnp.linalg.cholesky`` does, so the
+LM loop rejects the step.
 """
 
 from __future__ import annotations
@@ -59,19 +62,15 @@ def _panel_factor(a: Tensor, inner: int,
                   pallas_micro: bool = False) -> tuple[Tensor, Tensor]:
     """Cholesky and explicit inverse of one (..., p, p) diagonal panel.
 
-    ``pallas_micro`` takes the ``micro_chol_inv`` kernel for a batch of at
-    least 8 float32 panels without inner blocking (the JAX package's gate;
-    the separator, a batch of one, never takes it).  ``inner > 0`` factors
-    the panel itself by ``inner``-wide blocks and builds its inverse by
-    panel forward substitution against the identity.
+    ``pallas_micro`` takes the ``micro_chol_inv`` kernel for float32
+    panels without inner blocking (the separator's factor never asks for
+    it).  ``inner > 0`` factors the panel itself by ``inner``-wide blocks
+    and builds its inverse by panel forward substitution against the
+    identity.
     """
     p = a.shape[-1]
-    lead = 1
-    for d in a.shape[:-2]:
-        lead *= d
-    if (pallas_micro and lead >= 8 and a.dtype == torch.float32
-            and not inner):
-        L, inv = micro_chol_inv(a.reshape(lead, p, p))
+    if pallas_micro and a.dtype == torch.float32 and not inner:
+        L, inv = micro_chol_inv(a.reshape(-1, p, p))
         return L.reshape(a.shape), inv.reshape(a.shape)
     if not inner or p <= inner or p % inner:
         L = _chol_panel(a)

@@ -81,7 +81,7 @@ def dense_plan(edges: EdgeSet, switches: bool = False):
     ``(n*D, n*D)`` matrix; with ``switches`` a :class:`JointPlan` that
     also places, per edge, its switch diagonal and its couplings to both
     endpoints (a self-loop's two couplings add)."""
-    n, E, D = edges.num_nodes, edges.num_edges, edges.meas.shape[-1]
+    n, E, D = edges.num_nodes, edges.num_edges, edges.tangent_dim
     ij = edges.ij.cpu().numpy().astype(np.int64)
     a, b = ij[:, 0], ij[:, 1]
     nodes = np.arange(n)

@@ -1,9 +1,10 @@
 """Batched residual evaluation and normal-equation assembly.
 
-Port of ``slam_tpu/solver/linearize.py``.  Robust modes none/dcs (methods
-0/1) run the per-edge chain as the fused ``linearize_se2`` kernel
-(``ops/linearize.py``), which reads the edge endpoints itself; sc/sc_varpro
-run the plain chain below, after one ``gather_rows`` launch per source.
+Port of ``slam_tpu/solver/linearize.py``.  On SE(2), robust modes
+none/dcs (methods 0/1) run the per-edge chain as the fused
+``linearize_se2`` kernel (``ops/linearize.py``), which reads the edge
+endpoints itself; sc/sc_varpro, and every mode on SE(3), run the plain
+chain below, after one ``gather_rows`` launch per source.
 The node sums of a call are one ``scatter_add_rows`` launch.
 """
 
@@ -77,16 +78,20 @@ def linearize(
     m = loop_f[:, None]
     mm = loop_f[:, None, None]
     Js = torch.zeros_like(e)
-    if robust == "sc":
+    if robust == "dcs":
+        es, Jas, Jbs = kernels.dcs_scale(e, Ja, Jb, dcs_phi,
+                                         dims=model.dcs_dims)
+    elif robust == "sc":
         es, Jas, Jbs, Jss = kernels.switch_scale(e, Ja, Jb, switches)
         Js = m * Jss
     elif robust == "sc_varpro":
         es, Jas, Jbs = kernels.sc_varpro_scale(e, Ja, Jb, sc_prior_lambda)
-    else:
+    elif robust != "none":
         raise ValueError(f"unknown robust mode {robust!r}")
-    e = m * es + (1 - m) * e
-    Ja = mm * Jas + (1 - mm) * Ja
-    Jb = mm * Jbs + (1 - mm) * Jb
+    if robust != "none":
+        e = m * es + (1 - m) * e
+        Ja = mm * Jas + (1 - mm) * Ja
+        Jb = mm * Jbs + (1 - mm) * Jb
 
     s2 = torch.sum(e * e, dim=-1)
     w = kernels.huber_weight(s2, huber_delta) * edges.active

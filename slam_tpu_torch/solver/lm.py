@@ -17,14 +17,14 @@ from slam_tpu_torch.config import SolverConfig
 from slam_tpu_torch.runtime import require_type
 from slam_tpu_torch.solver import linear
 from slam_tpu_torch.solver.linearize import cost_only, linearize
-from slam_tpu_torch.solver.models import SE2Model
+from slam_tpu_torch.solver.models import model_for_dim
 from slam_tpu_torch.solver.problem import EdgeSet, FreeMask
 
 Tensor = torch.Tensor
 
 
 class LMState(NamedTuple):
-    poses: Tensor     # (N, 3)
+    poses: Tensor     # (N, 3) or (N, 7)
     switches: Tensor  # (E,)
     cost: Tensor      # scalar current cost
     lam: Tensor       # LM damping
@@ -168,9 +168,10 @@ def _cast(poses0, switches0, cfg):
 def lm_solve(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
              free: FreeMask, cfg: SolverConfig, model=None,
              partition=None) -> LMResult:
-    """Run LM to convergence (or ``cfg.max_iterations``)."""
+    """Run LM to convergence (or ``cfg.max_iterations``).  ``model=None``
+    takes the model of the poses' width (SE(2) or SE(3))."""
     require_type(cfg, SolverConfig, "cfg")
-    model = model or SE2Model
+    model = model or model_for_dim(poses0.shape[-1])
     poses0, switches0 = _cast(poses0, switches0, cfg)
     kw = _cost_kw(cfg, model)
     plan = linear_plan(cfg, edges, partition)
@@ -211,9 +212,10 @@ def lm_fixed_iters(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
                    model=None, partition=None, lam0=None, it0=None,
                    nu0=None) -> LMResult:
     """Exactly ``num_iters`` LM iterations, no host sync inside.
-    ``lam0``/``nu0``/``it0`` continue from a previous result."""
+    ``lam0``/``nu0``/``it0`` continue from a previous result;
+    ``model=None`` takes the model of the poses' width."""
     require_type(cfg, SolverConfig, "cfg")
-    model = model or SE2Model
+    model = model or model_for_dim(poses0.shape[-1])
     poses0, switches0 = _cast(poses0, switches0, cfg)
     kw = _cost_kw(cfg, model)
     plan = linear_plan(cfg, edges, partition)

@@ -28,16 +28,17 @@ from slam_tpu_torch.ops.gather import (
     segment_plan,
 )
 from slam_tpu_torch.runtime import require_type
+from slam_tpu_torch.solver.models import model_for_dim
 
 Tensor = torch.Tensor
 
 
 class EdgeSet(NamedTuple):
     ij: Tensor          # (E, 2) int32 endpoints
-    meas: Tensor        # (E, 3) measured relative pose
+    meas: Tensor        # (E, 3) or (E, 7) measured relative pose
     loop_f: Tensor      # (E,) 1.0 closure or bogus (robustified edges), 0.0
     active: Tensor      # (E,) float: 1 live, 0 padded/masked out
-    info: Tensor        # (E, 6) information entries
+    info: Tensor        # (E, 6) or (E, 21) information entries
     plan_a: SegmentPlan  # endpoint a: gather index + scatter plan
     plan_b: SegmentPlan  # endpoint b
     ab: Tensor          # (2E,) int32 endpoints a, then endpoints b
@@ -49,6 +50,11 @@ class EdgeSet(NamedTuple):
     @property
     def num_nodes(self) -> int:
         return self.plan_a.n
+
+    @property
+    def tangent_dim(self) -> int:
+        """Unknowns per node: 3 for SE(2) measurements, 6 for SE(3)."""
+        return model_for_dim(self.meas.shape[-1]).tangent_dim
 
     @property
     def is_loop(self) -> Tensor:
@@ -110,19 +116,24 @@ def edge_set_from_graph(graph: PoseGraph, dtype=torch.float64, device="cpu",
     """EdgeSet in canonical edge order; ``pad_to`` appends inactive (0, 0)
     edges so the edge count is a bucket size."""
     require_type(graph, PoseGraph, "graph")
-    if graph.dim != 3:
-        raise NotImplementedError(
-            "SE(3) graphs are not ported yet (ROADMAP A12)")
     g = graph.canonical_order()
     e = g.num_edges
     pad = 0 if pad_to is None else max(0, pad_to - e)
+    # Padded edges are (0, 0) self-loops of weight 0; an SE(3) pad holds
+    # the identity quaternion, so its residual stays finite (0 * NaN is
+    # NaN).
+    meas = np.concatenate([g.edges_meas,
+                           np.zeros((pad, g.edges_meas.shape[1]))])
+    if pad and g.edges_meas.shape[1] == 7:
+        meas[e:, 3] = 1.0
     return edge_set_from_arrays(
         ij=np.concatenate([g.edges_ij, np.zeros((pad, 2), np.int32)]),
-        meas=np.concatenate([g.edges_meas, np.zeros((pad, 3))]),
+        meas=meas,
         is_loop=np.concatenate([g.edge_type != ODOMETRY_EDGE,
                                 np.zeros(pad, bool)]),
         active=np.concatenate([np.ones(e), np.zeros(pad)]),
-        info=np.concatenate([g.edges_info, np.zeros((pad, 6))]),
+        info=np.concatenate([g.edges_info,
+                             np.zeros((pad, g.edges_info.shape[1]))]),
         num_nodes=g.num_nodes, dtype=dtype, device=device,
     )
 

@@ -2,10 +2,13 @@
 
     python -m slam_tpu_torch.tools.kernel_times [--reps 50]
         [--robust dcs|sc|sc_varpro] [--linear-solver schur|dense|pcg]
+        [--problem intel|sphere2500]
 
 For INTEL+50 and M10000+50 under ``--robust`` (plain DCS by default, or
 method 2's joint switches or their variable projection) on the native
-Schur solver, or INTEL+50 alone on the dense or the PCG solver, float32,
+Schur solver, or INTEL+50 alone on the dense or the PCG solver, or with
+``--problem sphere2500`` the sphere2500 SE(3) recipe (plain DCS, Schur
+with 4 index blocks; ``tools/problems.py``), float32,
 it records every kernel wrapper call of a one-iteration ``lm_fixed_iters``
 run (the initial cost plus one iteration; and on the Schur solver the
 first ``micro_chol_inv`` call of a blocked run), then replays each
@@ -371,28 +374,37 @@ def record_iteration(args, cfg, part, blocked_cfg=None):
 
 
 def main(argv=None) -> int:
-    from slam_tpu_torch.tools.problems import ROBUST, SOLVERS
+    from slam_tpu_torch.tools.problems import PROBLEMS, ROBUST, SOLVERS
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--robust", default="dcs", choices=ROBUST)
     ap.add_argument("--linear-solver", default="schur", choices=SOLVERS)
+    ap.add_argument("--problem", default="intel", choices=PROBLEMS)
     opts = ap.parse_args(argv)
+    if opts.problem == "sphere2500" and (opts.robust != "dcs"
+                                         or opts.linear_solver != "schur"):
+        raise ValueError("sphere2500 is the plain-DCS Schur recipe")
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
         return 1
     from slam_tpu_torch import runtime
     from slam_tpu_torch.tools.problems import CONFIGS, intel50_plain, \
-        m10000
+        m10000, sphere2500
 
     device = runtime.setup_device("cuda")
     peaks = card_peaks()
     card = nvidia_smi()
     schur = opts.linear_solver == "schur"
-    prob = intel50_plain(device, "float32", opts.robust, opts.linear_solver)
-    cases = {"INTEL": ((prob.poses0, prob.switches0, prob.edges, prob.free),
-                       prob.scfg, prob.partition)}
-    if schur:
+    if opts.problem == "sphere2500":
+        s = sphere2500(device, torch.float32)
+        cases = {"sphere2500": (s.args, s.cfg, s.partition)}
+    else:
+        prob = intel50_plain(device, "float32", opts.robust,
+                             opts.linear_solver)
+        cases = {"INTEL": ((prob.poses0, prob.switches0, prob.edges,
+                            prob.free), prob.scfg, prob.partition)}
+    if schur and opts.problem == "intel":
         m = m10000(device, torch.float32, opts.robust)
         cases["M10000"] = (m.args, m.cfg, m.partition)
     measured = []

@@ -9,9 +9,18 @@
 
 Either runs plain DCS (method 1 without the rescue), joint switchable
 constraints (``"sc"``, method 2) or their variable projection
-(``"sc_varpro"``).  ``CONFIGS`` are the Schur factorisations they are
-compared under; :func:`reference_key` names the float64 JAX reference of a
-run in ``slam_tpu_torch/data/reference_costs.json``.
+(``"sc_varpro"``).
+
+- sphere2500 (SE(3)), the recipe of ``bench.py``'s sphere row: 20 loop
+  closures moved by N(0, 20) m in translation (``default_rng(5)``) and
+  marked bogus, plain DCS, the Schur solver with 4 index blocks,
+  :data:`SPHERE_ITERS` ``lm_fixed_iters``.  The partition is built over
+  the edge set's own (canonical) order; ``bench.py`` builds it over the
+  order before the bogus edges move to the end.
+
+``CONFIGS`` are the Schur factorisations they are compared under;
+:func:`reference_key` and :func:`sphere_reference_key` name the float64
+JAX reference of a run in ``slam_tpu_torch/data/reference_costs.json``.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ CONFIGS = {
 
 ROBUST = ("dcs", "sc", "sc_varpro")
 SOLVERS = ("schur", "dense", "pcg")
+PROBLEMS = ("intel", "sphere2500")
 
 
 def reference_key(robust: str, solver: str, cli: bool = False) -> str:
@@ -78,7 +88,9 @@ def intel50_plain(device, dtype_name: str, robust: str = "dcs",
                    linear_solver=solver)
 
 
-class M10000Case(NamedTuple):
+class FixedCase(NamedTuple):
+    """A problem set up for ``lm_fixed_iters`` on the Schur solver."""
+
     graph: object      # the canonical-order PoseGraph
     args: tuple        # (poses0, switches0, edges, free) for lm_fixed_iters
     cfg: object        # SolverConfig with the Schur solver
@@ -97,7 +109,7 @@ def _m10000_graph():
     return graph, choose_partition(graph.edges_ij, graph.num_nodes)
 
 
-def m10000(device, dtype, robust: str = "dcs") -> M10000Case:
+def m10000(device, dtype, robust: str = "dcs") -> FixedCase:
     """M10000+50 under ``robust`` (``"dcs"``, ``"sc"``, ``"sc_varpro"``)
     with the Schur solver."""
     from slam_tpu_torch.config import SolverConfig
@@ -115,4 +127,60 @@ def m10000(device, dtype, robust: str = "dcs") -> M10000Case:
                            dtype=dtype, device=device, node_block=node_block)
     cfg = SolverConfig(robust=robust, linear_solver="schur",
                        dtype=str(dtype).replace("torch.", ""))
-    return M10000Case(graph, args, cfg, part, node_block is not None)
+    return FixedCase(graph, args, cfg, part, node_block is not None)
+
+
+#: LM iterations of the sphere2500 recipe.
+SPHERE_ITERS = 30
+#: Index blocks of the sphere2500 recipe's Schur partition.
+SPHERE_BLOCKS = 4
+
+
+def sphere_reference_key(config: str) -> str:
+    """The float64 reference of the sphere2500 recipe under a Schur
+    factorisation of :data:`CONFIGS` (the blocked ones share theirs: the
+    kernel takes float32 panels only)."""
+    return ("sphere2500_dcs_schur_native" if config == "native"
+            else "sphere2500_dcs_schur_blocked")
+
+
+@functools.lru_cache(maxsize=1)
+def sphere2500_graph():
+    """sphere2500 with 20 corrupted closures, in canonical order."""
+    import dataclasses
+
+    import numpy as np
+
+    from slam_tpu_torch.io import g2o
+
+    g = g2o.load_g2o(str(REPO / "data" / "sphere2500.g2o")).canonical_order()
+    meas = g.edges_meas.copy()
+    rng = np.random.default_rng(5)
+    loop_idx = np.where(g.edge_type != 0)[0]
+    bad = rng.choice(loop_idx, size=20, replace=False)
+    meas[bad, :3] += rng.normal(0, 20.0, (20, 3))
+    etype = g.edge_type.copy()
+    etype[bad] = 2
+    return dataclasses.replace(g, edges_meas=meas,
+                               edge_type=etype).canonical_order()
+
+
+def sphere2500(device, dtype) -> FixedCase:
+    """The sphere2500 recipe: plain DCS on the Schur solver, 4 index
+    blocks, node 0 anchored, no edge padding."""
+    from slam_tpu_torch.config import SolverConfig
+    from slam_tpu_torch.solver.problem import anchor_first_node, \
+        edge_set_from_graph
+    from slam_tpu_torch.solver.schur import build_partition
+
+    graph = sphere2500_graph()
+    edges = edge_set_from_graph(graph, dtype=dtype, device=device)
+    args = (torch.as_tensor(graph.poses, dtype=dtype, device=device),
+            torch.ones((edges.num_edges,), dtype=dtype, device=device),
+            edges, anchor_first_node(graph.num_nodes, dtype=dtype,
+                                     device=device))
+    part = build_partition(graph.edges_ij, graph.num_nodes, SPHERE_BLOCKS,
+                           dtype=dtype, device=device)
+    cfg = SolverConfig(robust="dcs", linear_solver="schur",
+                       dtype=str(dtype).replace("torch.", ""))
+    return FixedCase(graph, args, cfg, part, False)

@@ -2,6 +2,7 @@
 
     python -m slam_tpu_torch.tools.profile_lm [--iters 10]
         [--robust dcs|sc|sc_varpro] [--linear-solver schur|dense|pcg]
+        [--problem intel|sphere2500]
 
 ``--robust``: plain DCS (method 1 without the rescue), joint switchable
 constraints or their variable projection (method 2).  With the Schur
@@ -9,8 +10,11 @@ solver (the default) it profiles INTEL+50 seed 42 (the global solve's
 set-up) and M10000+50 seed 0 (dataset init, auto partition), float32,
 under each factorisation -- native, blocked (panel 128) with the plain
 panel factor, blocked with ``micro_chol_inv``; with the dense or the PCG
-solver, INTEL+50 alone.  Each case runs ``2 x --iters``
-``lm_fixed_iters`` iterations to warm up and ``2 x --iters`` unprofiled
+solver, INTEL+50 alone.  ``--problem sphere2500`` profiles the
+sphere2500 SE(3) recipe instead (plain DCS, Schur with 4 index blocks;
+``tools/problems.py``) under the three factorisations.  Each case runs
+``2 x --iters`` ``lm_fixed_iters`` iterations to warm up and ``2 x
+--iters`` unprofiled
 for the wall clock; then, once every case has its wall clock (a
 torch.profiler session leaves the later host-bound work of its process
 slower), ``--iters`` (PCG: :data:`PCG_PROFILE_ITERS`) under
@@ -37,8 +41,8 @@ import time
 
 import torch
 
-from slam_tpu_torch.tools.problems import CONFIGS, ROBUST, SOLVERS, \
-    intel50_plain, m10000
+from slam_tpu_torch.tools.problems import CONFIGS, PROBLEMS, ROBUST, \
+    SOLVERS, intel50_plain, m10000, sphere2500
 
 #: LM iterations of a PCG case under the profiler (each runs up to
 #: ``pcg_max_iters`` CG iterations of a few hundred launches).
@@ -71,16 +75,18 @@ def linearize_host_us(args, cfg, reps: int = 50) -> dict:
     fused kernel's wrapper on the initial poses."""
     from slam_tpu_torch.ops.linearize import fused_linearize_se2_indexed
     from slam_tpu_torch.solver.linearize import linearize
-    from slam_tpu_torch.solver.models import SE2Model
+    from slam_tpu_torch.solver.models import model_for_dim
     from slam_tpu_torch.tools.kernel_times import host_us
 
     poses, switches, edges, free = args
     poses = poses.to(getattr(torch, cfg.dtype))
+    model = model_for_dim(poses.shape[-1])
     out = {"linearize_host_us": host_us(lambda: linearize(
-        poses, switches, edges, free, model=SE2Model, robust=cfg.robust,
+        poses, switches, edges, free, model=model, robust=cfg.robust,
         dcs_phi=cfg.dcs_phi, huber_delta=cfg.huber_delta,
         sc_prior_lambda=cfg.sc_prior_lambda), reps)}
-    if cfg.robust in ("none", "dcs"):  # the fused kernel's modes
+    if cfg.robust in ("none", "dcs") and model.pose_dim == 3:
+        # the fused kernel's modes and graphs
         out["fused_linearize_host_us"] = host_us(
             lambda: fused_linearize_se2_indexed(
                 poses, free.node, edges, cfg.dcs_phi, cfg.huber_delta,
@@ -140,7 +146,11 @@ def main(argv=None) -> int:
     ap.add_argument("--top", type=int, default=8)
     ap.add_argument("--robust", default="dcs", choices=ROBUST)
     ap.add_argument("--linear-solver", default="schur", choices=SOLVERS)
+    ap.add_argument("--problem", default="intel", choices=PROBLEMS)
     args = ap.parse_args(argv)
+    if args.problem == "sphere2500" and (args.robust != "dcs"
+                                         or args.linear_solver != "schur"):
+        raise ValueError("sphere2500 is the plain-DCS Schur recipe")
     if not torch.cuda.is_available():
         print("profile_lm: no CUDA device", file=sys.stderr)
         return 1
@@ -148,11 +158,16 @@ def main(argv=None) -> int:
 
     device = runtime.setup_device("cuda")
     solver = args.linear_solver
-    prob = intel50_plain(device, "float32", args.robust, solver)
-    cases = {"INTEL": ((prob.poses0, prob.switches0, prob.edges, prob.free),
-                       prob.scfg, prob.partition)}
     configs = {solver: {}}
-    if solver == "schur":
+    if args.problem == "sphere2500":
+        m = sphere2500(device, torch.float32)
+        cases = {"sphere2500": (m.args, m.cfg, m.partition)}
+        configs = CONFIGS
+    else:
+        prob = intel50_plain(device, "float32", args.robust, solver)
+        cases = {"INTEL": ((prob.poses0, prob.switches0, prob.edges,
+                            prob.free), prob.scfg, prob.partition)}
+    if solver == "schur" and args.problem == "intel":
         m = m10000(device, torch.float32, args.robust)
         cases["M10000"] = (m.args, m.cfg, m.partition)
         configs = CONFIGS

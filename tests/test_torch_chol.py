@@ -208,8 +208,8 @@ def _f32(sys_, lib):
 
 @pytest.mark.parametrize("inverse", [True, False])
 def test_blocked_micro_schur_float32(problem, monkeypatch, inverse):
-    """panel 16, P = 8 interiors: the micro gate (lead >= 8, float32) is
-    open in both packages.  1e-4 x max|x| against JAX (float32 rounding of
+    """panel 16, P = 8 interiors: the micro gate is open in both packages
+    (the JAX package's asks for float32 and a batch of at least 8).  1e-4 x max|x| against JAX (float32 rounding of
     two differently ordered factorisations) and 1e-3 against the float64
     dense solve (the float32 solve's own error)."""
     g, je, te, jsys, tsys, dense = problem

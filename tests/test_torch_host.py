@@ -7,6 +7,7 @@ import dataclasses
 import os
 import pathlib
 import re
+import subprocess
 
 import numpy as np
 import pytest
@@ -51,12 +52,39 @@ def intel():
     return jg2o.load_g2o(path), tg2o.load_g2o(path)
 
 
+@pytest.fixture(scope="module")
+def jax_native(tmp_path_factory):
+    """The JAX package's native g2o reader and writers, built here.
+
+    ``slam_tpu.io.native`` compiles straight into ``native/build``, so a
+    test process that finds the library while another one is still
+    writing it fails to load it, and then keeps to the NumPy fallback for
+    the rest of its life.  This fixture builds its own copy under a
+    temporary name, renames it into place, and points the JAX module at
+    it, so the JAX side of a comparison is always the native code."""
+    from slam_tpu.io import native as jnative
+
+    out = tmp_path_factory.mktemp("jax_native") / "libg2o_io.so"
+    tmp = out.with_suffix(".tmp")
+    subprocess.run(["g++", "-O3", "-std=c++17", "-shared", "-fPIC",
+                    str(REPO / "native" / "g2o_io.cpp"), "-o", str(tmp)],
+                   check=True, capture_output=True, timeout=300)
+    os.replace(tmp, out)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnative, "_LIB", out)
+        mp.setattr(jnative, "_lib", None)
+        mp.setattr(jnative, "_lib_failed", False)
+        assert jnative.available()
+        yield jnative
+
+
 @pytest.mark.parametrize("use_native", [True, False])
-def test_load_g2o_matches(use_native):
+def test_load_g2o_matches(request, use_native):
     path = jg2o.find_dataset("INTEL")
     if use_native:
         from slam_tpu_torch.io import native
 
+        request.getfixturevalue("jax_native")
         assert native.available()
     assert_same_graph(tg2o.load_g2o(path, use_native=use_native),
                       jg2o.load_g2o(path, use_native=use_native))
@@ -123,7 +151,7 @@ def test_metrics_match(intel):
             == getattr(jmetrics, fn)(poses, golden), fn
 
 
-def test_writers_match_byte_for_byte(intel, tmp_path):
+def test_writers_match_byte_for_byte(intel, jax_native, tmp_path):
     j, t = intel
     dj, dt = tmp_path / "j", tmp_path / "t"
     dj.mkdir()
