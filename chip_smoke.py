@@ -23,6 +23,14 @@ the script exits non-zero and prints no result line):
      (the kernel reads the endpoints itself) and the JAX-shaped entry on
      gathered inputs, each within TOL of its plain version and the two
      bitwise equal;
+   - the short solves of methods 3 and 4 on INTEL+50 and CSAIL+50, as a
+     manager run cut to its first ``MANAGER_KERNEL_CANDIDATES`` closures
+     gives them: a candidate's edge mask (odometry, a layer's closures
+     and the new one) and a free mask that holds every node outside one
+     window (method 3's commit window, method 4's nodes of the active
+     edges), each one LM iteration on the pose-only dense plan recorded
+     and replayed as above, and the linearisation on those masks within
+     TOL of its plain version;
    - ``micro_chol_inv`` on SPD batches of (16, 128, 128) and
      (32, 128, 128), of 48 and 80 such panels (where the kernel takes 2
      and 1 CTAs a matrix), and on real panels: the first and the trailing
@@ -81,7 +89,21 @@ the script exits non-zero and prints no result line):
    (c) ``golden``: the dense-solver golden cells of
    ``tests/test_golden.py`` (CSAIL clean, CSAIL+50 seed 42 DCS, INTEL
    clean; 40 iterations of ``lm_solve``) at their ATE and cost bounds;
-9. the kernels' times, after the end-to-end phases and with every
+9. methods 3 and 4 (the layering and MCTS host engines), float32,
+   through the CLI, each run's log lines sent to a file and its decision
+   stream held to the manager oracle's
+   (``slam_tpu_torch/data/manager_decisions.json``,
+   ``slam_tpu_torch/tools/manager_spread.py``):
+   ``method4_path`` (``INTEL 50 4 --seed 42``: 306/306 decisions and the
+   oracle's layer), ``method3_ceres`` (``INTEL 50 3 --seed 42
+   --eval-trust-region ceres``: 306/306, the assignments and the layer),
+   ``method3_path`` (``INTEL 50 3 --seed 42``, the default Nielsen eval:
+   an identical prefix of at least ``M3_NIELSEN_PREFIX``, its first
+   divergence printed) and ``csail_managers`` (``CSAIL 50 3`` and ``4``,
+   ``--seed 0``: 178/178 each); each prints its wall, its short solves and
+   its largest Delta, split-value and residual differences from the
+   oracle, gated at ``MANAGER_DIFF_GATES``;
+10. the kernels' times, after the end-to-end phases and with every
    profiler session last, since one leaves the later host-bound calls of
    its process slower (``[kernels]`` lines, float32; and
    ``micro_chol_inv`` in float64): per launch and per plan of the
@@ -179,6 +201,40 @@ GOLDEN_CELLS = {
     "CSAIL_50out_seed42": ("CSAIL", 50, 42, "dcs", 0.10, 1.5, 0.0),
     "INTEL_0out_seed0": ("INTEL", 0, 0, "none", 0.05, 2.0, 0.05),
 }
+# Methods 3 and 4 (phase 9).  The default Nielsen eval of method 3 departs
+# from the oracle's Ceres bookkeeping on INTEL+50; the JAX f32 engine's
+# own record is an identical prefix of 127 (ROADMAP C-ref 4).
+M3_NIELSEN_PREFIX = 127
+# Gates on the largest differences from the oracle before the first
+# divergence (method 3's Delta and edge residual, method 4's split value
+# and Mahalanobis residual): twice the largest measured in float32 on the
+# card and on the CPU (python -m slam_tpu_torch.tools.manager_spread, and
+# --device cpu --dtype float32); PERF.md gives both.  In the comment, the
+# largest card / CPU.  The Nielsen Delta is the eval's own departure from
+# the oracle's Ceres bookkeeping: float64 on the card gives 2.38e-2 too.
+MANAGER_DIFF_GATES = {
+    "intel50_m4": {"split_value": 1.41e-4,   # 7.04e-5 / 5.74e-5
+                   "residual": 0.200},       # 9.97e-2 / 7.86e-2
+    "intel50_m3_ceres": {"delta": 3.76e-4,   # 1.88e-4 / 1.70e-4
+                         "residual": 4.59e-3},  # 2.00e-3 / 2.29e-3
+    "intel50_m3": {"delta": 4.76e-2,         # 2.38e-2 / 2.38e-2
+                   "residual": 3.01e-3},     # 1.50e-3 / 1.15e-3
+    "csail50_m3": {"delta": 3.17e-5,         # 1.38e-5 / 1.58e-5
+                   "residual": 1.56e-3},     # 7.79e-4 / 4.41e-4
+    "csail50_m4": {"split_value": 6.42e-5,   # 2.59e-5 / 3.21e-5
+                   "residual": 0.182},       # 6.00e-2 / 9.10e-2
+}
+MANAGER_PHASES = {  # phase: its cells (slam_tpu_torch/tools/manager_spread)
+    "method4_path": ("intel50_m4",),
+    "method3_ceres": ("intel50_m3_ceres",),
+    "method3_path": ("intel50_m3",),
+    "csail_managers": ("csail50_m3", "csail50_m4"),
+}
+# The managers' short-solve inputs of phase 2 come from a run cut to this
+# many closures (cells: dataset, outliers, seed of the phase-9 runs).
+MANAGER_KERNEL_CANDIDATES = 32
+MANAGER_KERNEL_CELLS = {"INTEL+50": ("INTEL", 50, 42),
+                        "CSAIL+50": ("CSAIL", 50, 0)}
 PANEL = 128               # schur_panel of the blocked path
 KERNEL_INFO = {  # name: (source, TPU kernel it replaces, phase that runs it)
     "gather_rows": ("slam_tpu_torch/csrc/gather.cu",
@@ -205,6 +261,8 @@ PHASE_KERNELS = {
     "se3_path": ("gather_rows", "scatter_add_rows"),
     "se3_ab": ("gather_rows", "scatter_add_rows", "micro_chol_inv"),
     "golden": ("gather_rows", "scatter_add_rows", "fused_linearize_se2"),
+    **{phase: ("gather_rows", "scatter_add_rows", "fused_linearize_se2")
+       for phase in MANAGER_PHASES},
 }
 # Launches per LM iteration of native INTEL plain DCS (phase 6d): one
 # gather per source outside the linearisation (which reads its endpoints
@@ -366,6 +424,61 @@ def check_launches(calls, label: str, name: str) -> float:
     return worst
 
 
+def linearize_errs(what: str, got: dict, plain: dict, dtype) -> dict:
+    """(err, scale) of each linearisation output against its plain
+    version; raises where one is above TOL x scale."""
+    errs = {k: max_err(got[k], plain[k]) for k in plain}
+    bad = {k: v for k, v in errs.items() if not v[0] <= TOL[dtype] * v[1]}
+    if bad:
+        raise AssertionError(f"fused_linearize_se2 {what}: (err, scale) "
+                             f"above {TOL[dtype]} x scale: {bad}")
+    return errs
+
+
+def check_manager_shapes(device, dtype, graphs: dict) -> None:
+    """Phase 2 on the short solves of methods 3 and 4 (see the module
+    docstring): each case's LM iteration recorded and replayed through
+    :func:`check_launches`, its launches required, and the linearisation
+    on its masks held to the plain version."""
+    from slam_tpu_torch.ops.linearize import fused_linearize_se2_indexed, \
+        fused_linearize_se2_indexed_plain
+    from slam_tpu_torch.tools import kernel_times as kt
+    from slam_tpu_torch.tools.manager_spread import short_solve_inputs
+
+    name = str(dtype).replace("torch.", "")
+    for cell, graph in graphs.items():
+        for method in (3, 4):
+            ss, cases = short_solve_inputs(graph, method, device, name,
+                                           MANAGER_KERNEL_CANDIDATES)
+            for kind, args in cases.items():
+                label = f"{cell}-m{method}-{kind}"
+                poses, _, edges, free = args
+                calls, counts, _ = kt.record_iteration(args, ss.cfg,
+                                                       ss.plan)
+                missing = [k for k in PHASE_KERNELS["main_path"]
+                           if counts.get(k, 0) <= 0]
+                if missing:
+                    raise AssertionError(f"{label} {name}: {missing} not "
+                                         "launched")
+                scatter_err = check_launches(calls, label, name)
+                lin = (ss.cfg.dcs_phi, ss.cfg.huber_delta)
+                got = fused_linearize_se2_indexed(
+                    poses, free.node, edges, *lin, robust=ss.cfg.robust)
+                torch.cuda.synchronize()
+                errs = linearize_errs(
+                    f"{label} {name}", got, fused_linearize_se2_indexed_plain(
+                        poses, free.node, edges.ab, edges.meas, edges.loop_f,
+                        edges.active, *lin, ss.cfg.robust), dtype)
+                log("kernels", shape=label, dtype=name,
+                    edges=edges.num_edges, nodes=poses.shape[0],
+                    active_edges=int(edges.active.sum().item()),
+                    free_nodes=int(free.node.sum().item()),
+                    dense_unknowns=3 * poses.shape[0],
+                    checked_calls=len(calls), scatter_max_abs_err=scatter_err,
+                    linearize_max_abs_err=max(e for e, _ in errs.values()),
+                    launches_per_run=json.dumps(counts))
+
+
 def summary_row(rows: list, prefix: str) -> dict:
     """The timing row of the call labelled ``prefix``."""
     for row in rows:
@@ -462,10 +575,13 @@ def phase_kernels(device, peaks, timings: list) -> dict:
         fused_linearize_se2_plain
     from slam_tpu_torch.solver import linear
     from slam_tpu_torch.tools import kernel_times as kt
+    from slam_tpu_torch.tools.manager_streams import cell_graph
     from slam_tpu_torch.tools.problems import CONFIGS, intel50, \
         intel50_plain, m10000, sphere2500
 
     summary = {}
+    manager_graphs = {cell: cell_graph(*c).canonical_order()
+                      for cell, c in MANAGER_KERNEL_CELLS.items()}
     for dtype in (torch.float32, torch.float64):
         name = str(dtype).replace("torch.", "")
         prob = intel50(device, name)
@@ -514,14 +630,8 @@ def phase_kernels(device, peaks, timings: list) -> dict:
                             *ix_args, robust=robust)),
                         ("gathered", l_k, fused_linearize_se2_plain(
                             *lin_args, robust=robust))):
-                    errs = {k: max_err(got[k], plain[k]) for k in plain}
-                    bad = {k: v for k, v in errs.items()
-                           if not v[0] <= TOL[dtype] * v[1]}
-                    if bad:
-                        raise AssertionError(
-                            f"fused_linearize_se2 {what} {label} {name} "
-                            f"{robust}: (err, scale) above {TOL[dtype]} x "
-                            f"scale: {bad}")
+                    errs = linearize_errs(f"{what} {label} {name} {robust}",
+                                          got, plain, dtype)
                     if robust == "dcs" and what == "indexed":
                         lin_err = max(e for e, _ in errs.values())
                         Haa = plain["Haa"]
@@ -571,6 +681,8 @@ def phase_kernels(device, peaks, timings: list) -> dict:
                 checked_calls=len(calls),
                 scatter_max_abs_err=check_launches(calls, label, name),
                 launches_per_run=json.dumps(counts))
+
+        check_manager_shapes(device, dtype, manager_graphs)
 
         # SE(3), D = 6: one iteration of the sphere2500 recipe under the
         # native and the blocked factorisation (in float32 the blocked
@@ -1193,6 +1305,75 @@ def phase_golden(device, smi: str) -> dict:
     return total
 
 
+def check_manager_cell(phase: str, row: dict) -> None:
+    """Phase 9's gates on one cell's diff against the oracle."""
+    cell, method = row["cell"], row["method"]
+    n = row["candidates"]
+    if row["count_mismatch"] or row["edges"] != n:
+        raise AssertionError(f"{phase} {cell}: {row['edges']} decisions, "
+                             f"the oracle's {n}")
+    if cell == "intel50_m3":
+        if row["identical_prefix"] < M3_NIELSEN_PREFIX:
+            raise AssertionError(
+                f"{phase} {cell}: identical prefix {row['identical_prefix']}"
+                f" < {M3_NIELSEN_PREFIX}; first divergence "
+                f"{json.dumps(row['first_divergence'])}")
+    else:
+        if row["identical_prefix"] != n or row["divergences"]:
+            raise AssertionError(
+                f"{phase} {cell}: {row['identical_prefix']}/{n} decisions "
+                "equal the oracle's; first divergence "
+                f"{json.dumps(row['first_divergence'])}")
+        if row["best_layer"] != row["oracle_best_layer"]:
+            raise AssertionError(f"{phase} {cell}: best layer "
+                                 f"{row['best_layer']}, the oracle's "
+                                 f"{row['oracle_best_layer']}")
+        if method == 3 and not row["assignments_equal"]:
+            raise AssertionError(f"{phase} {cell}: assignments differ")
+    key = {"delta": "max_delta_diff_pre_divergence",
+           "split_value": "max_split_value_diff_pre_divergence",
+           "residual": "max_residual_diff_pre_divergence"}
+    for what, gate in MANAGER_DIFF_GATES[cell].items():
+        got = row[key[what]]
+        if not (np.isfinite(got) and got <= gate):
+            raise AssertionError(f"{phase} {cell}: largest {what} "
+                                 f"difference {got} > {gate}")
+
+
+def phase_managers(smi: str) -> dict:
+    """Phase 9: methods 3 and 4 through the CLI against the oracle."""
+    from slam_tpu_torch import ops
+    from slam_tpu_torch.tools.manager_spread import run_cell
+
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    out = {}
+    for phase, cells in MANAGER_PHASES.items():
+        total = {}
+        for cell in cells:
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            row = run_cell(cell, "cuda", stdout_path=os.path.join(
+                REPO, "chiprun_out", f"{cell}.stdout.txt"))
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            first = row.pop("first_divergence")
+            log(phase, **{k: (json.dumps(v) if isinstance(v, (list, dict))
+                              else v) for k, v in row.items()},
+                launches=json.dumps(counts),
+                launches_per_lm_iteration=json.dumps(
+                    {k: n / row["lm_iterations"] for k, n in counts.items()}),
+                card=json.dumps(smi))
+            if first is not None:
+                log(phase, cell=cell, first_divergence=json.dumps(first))
+            row["first_divergence"] = first
+            check_manager_cell(phase, row)
+            for k, n in counts.items():
+                total[k] = total.get(k, 0) + n
+        require_launches(phase, total)
+        out[phase] = total
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -1237,6 +1418,7 @@ def main() -> int:
         ("se3_path", lambda: phase_se3_path(smi)),
         ("se3_ab", lambda: phase_se3_ab(device, smi)),
         ("golden", lambda: phase_golden(device, smi)),
+        ("managers", lambda: phase_managers(smi)),
         ("kernel_times", lambda: phase_kernel_times(timings)),
     ]
     out = {}
@@ -1252,7 +1434,7 @@ def main() -> int:
                 "method2_ab": out["method2_ab"], **out["pcg"],
                 "report_stages": out["report_stages"],
                 "se3_path": out["se3_path"], "se3_ab": out["se3_ab"],
-                "golden": out["golden"]}
+                "golden": out["golden"], **out["managers"]}
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[path][k], **out["kernels"][k],

@@ -1,12 +1,15 @@
-"""Command-line driver of the PyTorch port, methods 0, 1 and 2.
+"""Command-line driver of the PyTorch port, methods 0-4.
 
 Same positional interface as ``slam_tpu.cli`` (the reference's
 ``./main DATASET NUM_OUTLIER_LOOPS METHOD``):
 
     python -m slam_tpu_torch.cli INTEL 50 1 --seed 42 --save-path save
 
-The device is CUDA unless ``--device cpu`` is given; the dtype is float32 on
-CUDA and float64 on CPU unless ``--dtype`` says otherwise.
+Methods 3 (layering) and 4 (MCTS) run the host-driven engines; the fused
+single-program engines (``--fused on``, ``--eval-linear``,
+``--scan-chunk``) are not ported yet.  The device is CUDA unless
+``--device cpu`` is given; the dtype is float32 on CUDA and float64 on CPU
+unless ``--dtype`` says otherwise.
 """
 
 from __future__ import annotations
@@ -14,7 +17,8 @@ from __future__ import annotations
 import argparse
 import sys
 
-from slam_tpu_torch.config import RunConfig, SolverConfig
+from slam_tpu_torch.config import LayeringConfig, MctsConfig, RunConfig, \
+    SolverConfig
 
 # Flags of the JAX CLI whose code paths are not ported yet, and where the
 # ROADMAP queues them.
@@ -22,6 +26,8 @@ _NOT_PORTED = {
     "sweep": "A17 (sweeps)",
     "checkpoint": "A17 (checkpointed solves)",
     "profile": "A17 (profiling)",
+    "eval_linear": "A14d (the fused method-3/4 engines)",
+    "scan_chunk": "A14d (the fused method-3/4 engines)",
 }
 # Linear solvers of the JAX CLI that are not ported yet.
 _SOLVERS_NOT_PORTED = {"woodbury": "A16"}
@@ -37,8 +43,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("num_outliers", type=int,
                    help="number of bogus loops to inject")
     p.add_argument("method", type=int, choices=[0, 1, 2, 3, 4],
-                   help="0=baseline 1=DCS 2=SC (3=layering 4=MCTS are not "
-                        "ported yet)")
+                   help="0=baseline 1=DCS 2=SC 3=layering 4=MCTS")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (default) or cpu (the plain kernel versions)")
     p.add_argument("--save-path", default="save")
@@ -80,6 +85,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--report-stages", action="store_true",
                    help="add per-stage (linearize / linear solve / "
                         "retract+cost) times to the solve report")
+    p.add_argument("--fused", default="auto", choices=["auto", "on", "off"],
+                   help="methods 3/4 engine: auto and off take the "
+                        "host-driven loop (on, the fused engine, is not "
+                        "ported yet)")
+    p.add_argument("--scan-chunk", type=int, default=None,
+                   help="not ported yet (fused engines)")
+    p.add_argument("--eval-linear", default=None,
+                   choices=[None, "auto", "schur", "pcg", "dense"],
+                   help="not ported yet (fused engines)")
+    p.add_argument("--eval-trust-region", default=None,
+                   choices=[None, "nielsen", "ceres"],
+                   help="methods 3/4: short-solve bookkeeping of the "
+                        "candidate evaluations (ceres = stock-Ceres "
+                        "acceptance and radius updates, for decision "
+                        "parity with the manager oracle; default nielsen)")
+    p.add_argument("--eval-pcg-iters", type=int, default=None,
+                   help="methods 3/4: CG cap of the PCG candidate "
+                        "evaluations, graphs above 2048 nodes (default 64)")
+    p.add_argument("--eval-pcg-rtol", type=float, default=None,
+                   help="methods 3/4: relative tolerance of the PCG "
+                        "candidate evaluations (default 1e-3)")
     return p
 
 
@@ -106,7 +132,21 @@ def config_from_args(args) -> RunConfig:
         init=args.init,
         report_stages=args.report_stages,
         solver=solver,
+        layering=LayeringConfig(**_eval_overrides(args)),
+        mcts=MctsConfig(**_eval_overrides(args)),
     )
+
+
+def _eval_overrides(args) -> dict:
+    """Methods 3/4 eval overrides from the command line."""
+    out = {}
+    if args.eval_pcg_iters:
+        out["eval_pcg_max_iters"] = args.eval_pcg_iters
+    if args.eval_pcg_rtol:
+        out["eval_pcg_rtol"] = args.eval_pcg_rtol
+    if args.eval_trust_region:
+        out["eval_trust_region"] = args.eval_trust_region
+    return out
 
 
 def main(argv=None) -> int:
@@ -116,18 +156,25 @@ def main(argv=None) -> int:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported yet (ROADMAP "
                 f"{item})")
+    if args.fused == "on":
+        raise NotImplementedError(
+            "--fused on is not ported yet (ROADMAP A14d, the fused "
+            "method-3/4 engines)")
     if args.linear_solver in _SOLVERS_NOT_PORTED:
         raise NotImplementedError(
             f"--linear-solver {args.linear_solver} is not ported yet "
             f"(ROADMAP {_SOLVERS_NOT_PORTED[args.linear_solver]})")
-    if args.method in (3, 4):
-        raise NotImplementedError(
-            f"method {args.method} is not ported yet (ROADMAP A14)")
     cfg = config_from_args(args)
 
-    from slam_tpu_torch.methods.global_solve import run_from_config
-
-    out = run_from_config(cfg, device=args.device)
+    if cfg.method == 3:
+        from slam_tpu_torch.methods.layering import run_from_config as run3
+        out = run3(cfg, device=args.device)
+    elif cfg.method == 4:
+        from slam_tpu_torch.methods.mcts import run_from_config as run4
+        out = run4(cfg, device=args.device)
+    else:
+        from slam_tpu_torch.methods.global_solve import run_from_config
+        out = run_from_config(cfg, device=args.device)
 
     if args.eval_against:
         from slam_tpu_torch.eval import metrics
@@ -141,11 +188,16 @@ def main(argv=None) -> int:
 
         from slam_tpu_torch.viz import plot
 
-        plot.plot_trajectories(
-            os.path.join(cfg.save_path, "init_nodes.txt"),
-            os.path.join(cfg.save_path, "opt_nodes.txt"),
-            os.path.join(cfg.save_path, "trajectory.png"),
-        )
+        # The reference's do_plot.sh dispatch (do_plot.sh:2-9): the
+        # dashboard for a method-4 run, else the trajectory overlay.
+        if cfg.method == 4:
+            plot.plot_method4_dashboard(cfg.save_path)
+        else:
+            plot.plot_trajectories(
+                os.path.join(cfg.save_path, "init_nodes.txt"),
+                os.path.join(cfg.save_path, "opt_nodes.txt"),
+                os.path.join(cfg.save_path, "trajectory.png"),
+            )
     return 0
 
 

@@ -1,0 +1,109 @@
+"""Short masked LM solves for the layering and MCTS methods.
+
+Port of ``slam_tpu/methods/batched.py``.  The reference's methods 3/4
+spend their time in ``evaluate_cost`` / ``evaluate_layer_cost``: a fresh
+Ceres problem solved for 1-2 LM iterations per candidate
+(``layer_manager.cpp:602-654``, ``simple_layer_manager.cpp:567-622``).
+Here a candidate is a (poses, edge-activity mask) pair over the one
+canonical :class:`EdgeSet`: ``edges._replace(active=mask)`` keeps its
+scatter plans, so no problem is rebuilt.
+
+The JAX package ``vmap``s the batch into one device program; here each
+candidate is its own :func:`lm_fixed_iters` call, and a batch's costs stay
+on the device until the caller reads them all at once.  Every function
+takes the linear plan, which the caller builds once per graph
+(:func:`eval_plan`), so no call re-plans the dense assembly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from slam_tpu_torch.config import SolverConfig
+from slam_tpu_torch.solver import linear
+from slam_tpu_torch.solver.lm import lm_fixed_iters
+from slam_tpu_torch.solver.problem import EdgeSet, FreeMask
+
+Tensor = torch.Tensor
+
+
+def eval_plan(cfg: SolverConfig, edges: EdgeSet):
+    """The linear plan of the short solves: the dense assembly plan for
+    ``linear_solver="dense"``, nothing for PCG."""
+    if cfg.linear_solver == "dense":
+        return linear.dense_plan(edges)
+    if cfg.linear_solver == "pcg":
+        return None
+    raise ValueError("the short solves run on the dense solver or PCG, not "
+                     f"{cfg.linear_solver!r}")
+
+
+def _check_plan(cfg: SolverConfig, plan) -> None:
+    if cfg.linear_solver == "dense" and plan is None:
+        raise ValueError("the dense short solves need the plan of "
+                         "eval_plan(cfg, edges)")
+
+
+def _solve(poses, active, free, edges, cfg, num_iters, plan):
+    e = edges._replace(active=active)
+    sw = torch.ones((edges.num_edges,), dtype=active.dtype,
+                    device=active.device)
+    return lm_fixed_iters(poses, sw, e, free, cfg, num_iters,
+                          partition=plan)
+
+
+def batched_eval_cost(
+    poses_b,             # (B, N, 3) or B tensors (N, 3): starting poses
+    actives_b: Tensor,   # (B, E) edge-activity masks
+    edges: EdgeSet,
+    free: FreeMask,
+    cfg: SolverConfig,
+    num_iters: int,
+    plan,
+) -> Tensor:
+    """(B,) final costs of a ``num_iters``-iteration LM solve per
+    candidate, on the device (the reference's ``summary.final_cost``:
+    after the short solve, Huber-robustified, 0.5-scaled)."""
+    _check_plan(cfg, plan)
+    return torch.stack([
+        _solve(poses, active, free, edges, cfg, num_iters, plan).cost
+        for poses, active in zip(poses_b, actives_b)])
+
+
+def masked_solve(
+    poses: Tensor,       # (N, 3)
+    active: Tensor,      # (E,)
+    free_node: Tensor,   # (N,) 1.0 = free
+    edges: EdgeSet,
+    cfg: SolverConfig,
+    num_iters: int,
+    plan,
+) -> tuple[Tensor, Tensor]:
+    """Short LM solve of a masked sub-problem; returns (poses, cost).
+
+    The reference's windowed local optimisations
+    (``layer_manager.cpp:137-179``, ``simple_layer_manager.cpp:500-565``):
+    nodes outside the window are held by the free mask, edges outside are
+    inactive -- the semantics of building the sub-problem."""
+    _check_plan(cfg, plan)
+    res = _solve(poses, active, FreeMask(node=free_node), edges, cfg,
+                 num_iters, plan)
+    return res.poses, res.cost
+
+
+def batched_masked_solve(
+    poses_b,              # (B, N, 3) or B tensors (N, 3)
+    actives_b: Tensor,    # (B, E)
+    free_nodes_b: Tensor,  # (B, N)
+    edges: EdgeSet,
+    cfg: SolverConfig,
+    num_iters: int,
+    plan,
+) -> tuple[Tensor, Tensor]:
+    """:func:`masked_solve` of each of B candidates: ((B, N, 3) poses,
+    (B,) costs)."""
+    _check_plan(cfg, plan)
+    out = [_solve(p, a, FreeMask(node=f), edges, cfg, num_iters, plan)
+           for p, a, f in zip(poses_b, actives_b, free_nodes_b)]
+    return (torch.stack([r.poses for r in out]),
+            torch.stack([r.cost for r in out]))

@@ -141,8 +141,9 @@ def run_global_solve(
 ) -> GlobalSolveOutput:
     """Solve a (possibly outlier-injected) graph with method 0, 1 or 2."""
     if cfg.method not in (0, 1, 2):
-        raise NotImplementedError(
-            f"method {cfg.method} is not ported yet (ROADMAP A14)")
+        raise ValueError(
+            f"run_global_solve takes methods 0-2, not {cfg.method}; "
+            "methods 3 and 4 run through methods.layering and methods.mcts")
     logger = logger or RunLogger()
     prob = setup_problem(graph, cfg, logger, device)
     scfg, edges = prob.scfg, prob.edges

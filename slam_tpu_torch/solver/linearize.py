@@ -197,3 +197,41 @@ def loop_psi_mean(poses: Tensor, edges: EdgeSet, model, phi: float) -> Tensor:
     psi = loop_psi(poses, edges, model, phi)
     live = edges.active * edges.loop_f.to(poses.dtype)
     return torch.sum(live * psi) / torch.clamp(torch.sum(live), min=1.0)
+
+
+def edge_residuals(poses: Tensor, edges: EdgeSet, model=None) -> Tensor:
+    """Raw (unscaled) residuals of every edge at ``poses`` -- the layering
+    methods' residual feedback (``layer_manager.cpp:181-228``).
+    ``model=None`` takes SE(2), as the JAX package does."""
+    from slam_tpu_torch.solver.models import SE2Model
+
+    return (model or SE2Model).residual(*edges.gather_ab(poses), edges.meas)
+
+
+def edge_mahalanobis(poses: Tensor, edges: EdgeSet) -> Tensor:
+    """Per-edge Mahalanobis distance ``sqrt(r^T Omega r)`` of the SE(2)
+    residual, from the 6 upper-triangle information entries (method 4's
+    outlier gate, ``simple_layer_manager.cpp:388-442``)."""
+    r = edge_residuals(poses, edges)
+    i = edges.info
+    q = (i[:, 0] * r[:, 0] ** 2
+         + i[:, 3] * r[:, 1] ** 2
+         + i[:, 5] * r[:, 2] ** 2
+         + 2.0 * i[:, 1] * r[:, 0] * r[:, 1]
+         + 2.0 * i[:, 2] * r[:, 0] * r[:, 2]
+         + 2.0 * i[:, 4] * r[:, 1] * r[:, 2])
+    return torch.sqrt(torch.clamp(q, min=0.0))
+
+
+def edge_info_gain(edges: EdgeSet) -> Tensor:
+    """D-opt proxy ``0.5 * logdet(I + Omega)`` per SE(2) edge
+    (``layer_manager.cpp:284-298``)."""
+    i = edges.info
+    O = torch.stack([
+        torch.stack([i[:, 0], i[:, 1], i[:, 2]], -1),
+        torch.stack([i[:, 1], i[:, 3], i[:, 4]], -1),
+        torch.stack([i[:, 2], i[:, 4], i[:, 5]], -1),
+    ], dim=-2)
+    eye = torch.eye(3, dtype=i.dtype, device=i.device)
+    _, logdet = torch.linalg.slogdet(eye + O)
+    return 0.5 * logdet

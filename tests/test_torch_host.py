@@ -226,6 +226,60 @@ def test_port_refuses_jax_objects(intel):
             fn(*args, jcfg.SolverConfig(dtype="float64"))
 
 
+@pytest.fixture(scope="module")
+def dirty_circle():
+    """The manager tests' fixture: ``circle_se2(n=64, seed=1)`` plus 6
+    outliers, seed 9, in both packages' types."""
+    from slam_tpu.io import synthetic
+
+    graph, _ = synthetic.circle_se2(n=64, seed=1)
+    j = graph.add_random_outliers(6, seed=9)
+    return j, convert.graph_from_jax(j)
+
+
+@pytest.mark.parametrize("method", [0, 1, 2])
+def test_ceres_oracle_copy_is_bitwise(dirty_circle, method):
+    from slam_tpu.solver import ceres_oracle as jco
+    from slam_tpu_torch.solver import ceres_oracle as tco
+
+    j, t = dirty_circle
+    rj, rt = (mod.ceres_solve(g.poses, g.edges_ij, g.edges_meas,
+                              g.edge_type, method=method)
+              for mod, g in ((jco, j), (tco, t)))
+    assert dataclasses.fields(rt) and [f.name for f in dataclasses.fields(
+        rt)] == [f.name for f in dataclasses.fields(rj)]
+    for f in dataclasses.fields(rj):
+        a, b = getattr(rt, f.name), getattr(rj, f.name)
+        if isinstance(b, np.ndarray):
+            np.testing.assert_array_equal(a, b, err_msg=f.name)
+        else:
+            assert a == b, f.name
+
+
+@pytest.mark.parametrize("method", [3, 4])
+def test_manager_oracle_copy_is_bitwise(dirty_circle, method):
+    from slam_tpu.solver import manager_oracle as jmo
+    from slam_tpu_torch.solver import manager_oracle as tmo
+
+    j, t = dirty_circle
+    if method == 3:
+        cj, ct = (jcfg.LayeringConfig(local_iters=2, max_layers=8),
+                  tcfg.LayeringConfig(local_iters=2, max_layers=8))
+        oj, ot = jmo.Method3Oracle(j, cj), tmo.Method3Oracle(t, ct)
+    else:
+        cj, ct = (jcfg.MctsConfig(max_layers=8),
+                  tcfg.MctsConfig(max_layers=8))
+        oj, ot = jmo.Method4Oracle(j, cj), tmo.Method4Oracle(t, ct)
+    dj, dt = oj.run(), ot.run()
+    assert len(dj) > 0 and dt == dj
+    assert ot.assignments == oj.assignments
+    assert ot.best_layer() == oj.best_layer()
+    layers = ot.layers.values() if method == 4 else ot.layers
+    jlayers = oj.layers.values() if method == 4 else oj.layers
+    for a, b in zip(layers, jlayers):
+        np.testing.assert_array_equal(a.poses, b.poses)
+
+
 _JAX_IMPORT = re.compile(r"^\s*(from|import)\s+(slam_tpu|jax|jaxlib)(\.|\s|$)",
                          re.M)
 
@@ -234,7 +288,10 @@ def test_port_sources_import_no_slam_tpu():
     files = sorted((REPO / "slam_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 30
-    for new in ("solver/tridiag.py", "solver/linear.py", "solver/report.py"):
+    for new in ("solver/tridiag.py", "solver/linear.py", "solver/report.py",
+                "solver/ceres_oracle.py", "solver/manager_oracle.py",
+                "methods/batched.py", "methods/layering.py", "methods/mcts.py",
+                "tools/manager_streams.py", "tools/manager_spread.py"):
         assert REPO / "slam_tpu_torch" / new in files, new
     bad = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
            for f in files for m in _JAX_IMPORT.finditer(f.read_text())]
