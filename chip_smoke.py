@@ -31,6 +31,10 @@ the script exits non-zero and prints no result line):
      edges), each one LM iteration on the pose-only dense plan recorded
      and replayed as above, and the linearisation on those masks within
      TOL of its plain version;
+   - the same on the fused method-3 engine's own inputs, on its Schur
+     plan, at INTEL+50 and M3500+50 (a run cut to its first
+     ``MANAGER_KERNEL_CANDIDATES`` closures): a candidate evaluation's
+     edge mask with every node but node 0 free, and a windowed commit;
    - ``micro_chol_inv`` on SPD batches of (16, 128, 128) and
      (32, 128, 128), of 48 and 80 such panels (where the kernel takes 2
      and 1 CTAs a matrix), and on real panels: the first and the trailing
@@ -102,8 +106,26 @@ the script exits non-zero and prints no result line):
    divergence printed) and ``csail_managers`` (``CSAIL 50 3`` and ``4``,
    ``--seed 0``: 178/178 each); each prints its wall, its short solves and
    its largest Delta, split-value and residual differences from the
-   oracle, gated at ``MANAGER_DIFF_GATES``;
-10. the kernels' times, after the end-to-end phases and with every
+   oracle, gated at ``MANAGER_DIFF_GATES``; these runs pass ``--fused
+   off``;
+10. methods 3 and 4 on the fused engines (the decision loop on the
+   device), float32 unless named, every chunk run under
+   ``torch.cuda.set_sync_debug_mode("error")`` (a host read inside a
+   chunk fails the run):
+   (a) ``fused_managers``: the five cells of phase 9 through the CLI with
+   ``--fused on`` and the default (Schur) eval, held to the oracle's
+   streams as phase 9 holds the host engines, gated at
+   ``FUSED_MANAGER_DIFF_GATES``; then the PCG eval, the stated exception,
+   on INTEL+50 method 4 cut to ``FUSED_PCG_CANDIDATES`` closures, with its
+   host reads per candidate;
+   (b) ``fused_vs_host``: ``CSAIL 50 4 --seed 0`` in float64 with the
+   dense eval on the fused and the host engine: the same assignments,
+   layers and chosen layers, poses within ``FUSED_VS_HOST_ATOL``;
+   (c) ``fused_m3500``: ``M3500 50 4 --seed 0`` on the fused engine,
+   whole: every closure decided, finite poses, and its layers, chosen
+   layers and ATE beside the JAX float32 record
+   (``results/layer_tables/M3500_50out_s0_m4.json``), not gated;
+11. the kernels' times, after the end-to-end phases and with every
    profiler session last, since one leaves the later host-bound calls of
    its process slower (``[kernels]`` lines, float32; and
    ``micro_chol_inv`` in float64): per launch and per plan of the
@@ -124,12 +146,14 @@ and as the last line ``{"ok": true, "device": {...}}``.  Imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -230,11 +254,36 @@ MANAGER_PHASES = {  # phase: its cells (slam_tpu_torch/tools/manager_spread)
     "method3_path": ("intel50_m3",),
     "csail_managers": ("csail50_m3", "csail50_m4"),
 }
+# The fused engines (phase 10a) on the Schur eval: the same gates, twice
+# the largest float32 difference from the oracle on the card and on the
+# CPU (python -m slam_tpu_torch.tools.manager_spread --fused on, and
+# --device cpu --dtype float32 --fused on --eval-linear schur); PERF.md
+# gives both.  In the comment, the largest card / CPU.
+FUSED_MANAGER_DIFF_GATES = {
+    "intel50_m4": {"split_value": 3.71e-5,   # 1.85e-5 / 1.38e-5
+                   "residual": 3.81e-2},     # 1.08e-2 / 1.90e-2
+    "intel50_m3_ceres": {"delta": 2.46e-4,   # 9.55e-5 / 1.23e-4
+                         "residual": 2.90e-3},  # 1.45e-3 / 1.18e-3
+    "intel50_m3": {"delta": 4.77e-2,         # 2.38e-2 / 2.38e-2
+                   "residual": 2.90e-3},     # 1.45e-3 / 7.60e-4
+    "csail50_m3": {"delta": 1.53e-5,         # 7.63e-6 / 6.26e-6
+                   "residual": 1.11e-3},     # 5.53e-4 / 3.12e-4
+    "csail50_m4": {"split_value": 2.02e-5,   # 1.01e-5 / 2.14e-6
+                   "residual": 7.72e-2},     # 3.86e-2 / 1.70e-2
+}
+FUSED_CELLS = tuple(FUSED_MANAGER_DIFF_GATES)
+# The PCG eval's host reads are counted on a run cut to this many closures.
+FUSED_PCG_CANDIDATES = 8
+# Phase 10b: fused against host in float64 (the JAX package's own test).
+FUSED_VS_HOST_ATOL = 1e-9
 # The managers' short-solve inputs of phase 2 come from a run cut to this
-# many closures (cells: dataset, outliers, seed of the phase-9 runs).
+# many closures (cells: dataset, outliers, seed of the phase-9 runs; the
+# fused engine's at INTEL+50 and M3500+50).
 MANAGER_KERNEL_CANDIDATES = 32
 MANAGER_KERNEL_CELLS = {"INTEL+50": ("INTEL", 50, 42),
                         "CSAIL+50": ("CSAIL", 50, 0)}
+FUSED_KERNEL_CELLS = {"INTEL+50": ("INTEL", 50, 42),
+                      "M3500+50": ("M3500", 50, 0)}
 PANEL = 128               # schur_panel of the blocked path
 KERNEL_INFO = {  # name: (source, TPU kernel it replaces, phase that runs it)
     "gather_rows": ("slam_tpu_torch/csrc/gather.cu",
@@ -262,7 +311,8 @@ PHASE_KERNELS = {
     "se3_ab": ("gather_rows", "scatter_add_rows", "micro_chol_inv"),
     "golden": ("gather_rows", "scatter_add_rows", "fused_linearize_se2"),
     **{phase: ("gather_rows", "scatter_add_rows", "fused_linearize_se2")
-       for phase in MANAGER_PHASES},
+       for phase in (*MANAGER_PHASES, "fused_managers", "fused_vs_host",
+                     "fused_m3500")},
 }
 # Launches per LM iteration of native INTEL plain DCS (phase 6d): one
 # gather per source outside the linearisation (which reads its endpoints
@@ -435,48 +485,67 @@ def linearize_errs(what: str, got: dict, plain: dict, dtype) -> dict:
     return errs
 
 
-def check_manager_shapes(device, dtype, graphs: dict) -> None:
-    """Phase 2 on the short solves of methods 3 and 4 (see the module
-    docstring): each case's LM iteration recorded and replayed through
-    :func:`check_launches`, its launches required, and the linearisation
-    on its masks held to the plain version."""
+def check_short_solves(label: str, ss, cases: dict, dtype) -> None:
+    """Each case's LM iteration (``ss``'s configuration and plan)
+    recorded and replayed through :func:`check_launches`, its launches
+    required, and the linearisation on its masks held to the plain
+    version."""
     from slam_tpu_torch.ops.linearize import fused_linearize_se2_indexed, \
         fused_linearize_se2_indexed_plain
     from slam_tpu_torch.tools import kernel_times as kt
-    from slam_tpu_torch.tools.manager_spread import short_solve_inputs
+
+    name = str(dtype).replace("torch.", "")
+    for kind, args in cases.items():
+        what = f"{label}-{kind}"
+        poses, _, edges, free = args
+        calls, counts, _ = kt.record_iteration(args, ss.cfg, ss.plan)
+        missing = [k for k in PHASE_KERNELS["main_path"]
+                   if counts.get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"{what} {name}: {missing} not launched")
+        scatter_err = check_launches(calls, what, name)
+        lin = (ss.cfg.dcs_phi, ss.cfg.huber_delta)
+        got = fused_linearize_se2_indexed(
+            poses, free.node, edges, *lin, robust=ss.cfg.robust)
+        torch.cuda.synchronize()
+        errs = linearize_errs(
+            f"{what} {name}", got, fused_linearize_se2_indexed_plain(
+                poses, free.node, edges.ab, edges.meas, edges.loop_f,
+                edges.active, *lin, ss.cfg.robust), dtype)
+        plan = ({"dense_unknowns": 3 * poses.shape[0]}
+                if ss.cfg.linear_solver == "dense" else
+                {"plan": ss.cfg.linear_solver})
+        log("kernels", shape=what, dtype=name, **plan,
+            edges=edges.num_edges, nodes=poses.shape[0],
+            active_edges=int(edges.active.sum().item()),
+            free_nodes=int(free.node.sum().item()),
+            checked_calls=len(calls), scatter_max_abs_err=scatter_err,
+            linearize_max_abs_err=max(e for e, _ in errs.values()),
+            launches_per_run=json.dumps(counts))
+
+
+def check_manager_shapes(device, dtype, graphs: dict,
+                         fused_graphs: dict) -> None:
+    """Phase 2 on the short solves of methods 3 and 4 (see the module
+    docstring): the host engines' inputs on the pose-only dense plan, and
+    the fused method-3 engine's on its Schur plan."""
+    from slam_tpu_torch.tools.manager_spread import fused_solve_inputs, \
+        short_solve_inputs
 
     name = str(dtype).replace("torch.", "")
     for cell, graph in graphs.items():
         for method in (3, 4):
             ss, cases = short_solve_inputs(graph, method, device, name,
                                            MANAGER_KERNEL_CANDIDATES)
-            for kind, args in cases.items():
-                label = f"{cell}-m{method}-{kind}"
-                poses, _, edges, free = args
-                calls, counts, _ = kt.record_iteration(args, ss.cfg,
-                                                       ss.plan)
-                missing = [k for k in PHASE_KERNELS["main_path"]
-                           if counts.get(k, 0) <= 0]
-                if missing:
-                    raise AssertionError(f"{label} {name}: {missing} not "
-                                         "launched")
-                scatter_err = check_launches(calls, label, name)
-                lin = (ss.cfg.dcs_phi, ss.cfg.huber_delta)
-                got = fused_linearize_se2_indexed(
-                    poses, free.node, edges, *lin, robust=ss.cfg.robust)
-                torch.cuda.synchronize()
-                errs = linearize_errs(
-                    f"{label} {name}", got, fused_linearize_se2_indexed_plain(
-                        poses, free.node, edges.ab, edges.meas, edges.loop_f,
-                        edges.active, *lin, ss.cfg.robust), dtype)
-                log("kernels", shape=label, dtype=name,
-                    edges=edges.num_edges, nodes=poses.shape[0],
-                    active_edges=int(edges.active.sum().item()),
-                    free_nodes=int(free.node.sum().item()),
-                    dense_unknowns=3 * poses.shape[0],
-                    checked_calls=len(calls), scatter_max_abs_err=scatter_err,
-                    linearize_max_abs_err=max(e for e, _ in errs.values()),
-                    launches_per_run=json.dumps(counts))
+            check_short_solves(f"{cell}-m{method}", ss, cases, dtype)
+    for cell, graph in fused_graphs.items():
+        ss, cases = fused_solve_inputs(graph, device, name,
+                                       MANAGER_KERNEL_CANDIDATES)
+        if ss.cfg.linear_solver != "schur" or set(cases) != {"candidate",
+                                                             "window"}:
+            raise AssertionError(f"{cell} fused: {ss.cfg.linear_solver} "
+                                 f"plan, cases {sorted(cases)}")
+        check_short_solves(f"{cell}-fused-m3", ss, cases, dtype)
 
 
 def summary_row(rows: list, prefix: str) -> dict:
@@ -582,6 +651,8 @@ def phase_kernels(device, peaks, timings: list) -> dict:
     summary = {}
     manager_graphs = {cell: cell_graph(*c).canonical_order()
                       for cell, c in MANAGER_KERNEL_CELLS.items()}
+    fused_graphs = {cell: cell_graph(*c).canonical_order()
+                    for cell, c in FUSED_KERNEL_CELLS.items()}
     for dtype in (torch.float32, torch.float64):
         name = str(dtype).replace("torch.", "")
         prob = intel50(device, name)
@@ -682,7 +753,7 @@ def phase_kernels(device, peaks, timings: list) -> dict:
                 scatter_max_abs_err=check_launches(calls, label, name),
                 launches_per_run=json.dumps(counts))
 
-        check_manager_shapes(device, dtype, manager_graphs)
+        check_manager_shapes(device, dtype, manager_graphs, fused_graphs)
 
         # SE(3), D = 6: one iteration of the sphere2500 recipe under the
         # native and the blocked factorisation (in float32 the blocked
@@ -1305,8 +1376,10 @@ def phase_golden(device, smi: str) -> dict:
     return total
 
 
-def check_manager_cell(phase: str, row: dict) -> None:
-    """Phase 9's gates on one cell's diff against the oracle."""
+def check_manager_cell(phase: str, row: dict,
+                       gates: dict = MANAGER_DIFF_GATES) -> None:
+    """Phase 9's gates on one cell's diff against the oracle (and phase
+    10a's, under ``gates``)."""
     cell, method = row["cell"], row["method"]
     n = row["candidates"]
     if row["count_mismatch"] or row["edges"] != n:
@@ -1333,7 +1406,7 @@ def check_manager_cell(phase: str, row: dict) -> None:
     key = {"delta": "max_delta_diff_pre_divergence",
            "split_value": "max_split_value_diff_pre_divergence",
            "residual": "max_residual_diff_pre_divergence"}
-    for what, gate in MANAGER_DIFF_GATES[cell].items():
+    for what, gate in gates[cell].items():
         got = row[key[what]]
         if not (np.isfinite(got) and got <= gate):
             raise AssertionError(f"{phase} {cell}: largest {what} "
@@ -1353,7 +1426,7 @@ def phase_managers(smi: str) -> dict:
             torch.cuda.synchronize()
             ops.reset_launches()
             row = run_cell(cell, "cuda", stdout_path=os.path.join(
-                REPO, "chiprun_out", f"{cell}.stdout.txt"))
+                REPO, "chiprun_out", f"{cell}.stdout.txt"), fused="off")
             torch.cuda.synchronize()
             counts = ops.launch_counts()
             first = row.pop("first_divergence")
@@ -1372,6 +1445,193 @@ def phase_managers(smi: str) -> dict:
         require_launches(phase, total)
         out[phase] = total
     return out
+
+
+@contextlib.contextmanager
+def chunks_under_sync_mode(mode: str):
+    """Run every chunk of the fused engines under
+    ``torch.cuda.set_sync_debug_mode(mode)``: "error" raises at a host
+    read inside a chunk, "warn" warns (and :func:`count_syncs` counts)."""
+    from slam_tpu_torch.methods import layering_fused, mcts_fused
+
+    saved = {mod: mod._fused_chunk for mod in (layering_fused, mcts_fused)}
+
+    def under_mode(fn):
+        def chunk(*args, **kw):
+            torch.cuda.set_sync_debug_mode(mode)
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return chunk
+
+    for mod, fn in saved.items():
+        mod._fused_chunk = under_mode(fn)
+    try:
+        yield
+    finally:
+        for mod, fn in saved.items():
+            mod._fused_chunk = fn
+
+
+@contextlib.contextmanager
+def count_syncs(out: list):
+    """Append to ``out`` the message of every synchronizing CUDA operation
+    that the sync debug mode "warn" reports inside the block."""
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        yield
+    out += [str(w.message) for w in seen
+            if "synchronizing CUDA operation" in str(w.message)]
+
+
+def fused_manager(dataset: str, outliers: int, seed: int, method: int,
+                  flags: tuple = (), fused: str = "on"):
+    """The engine of ``python -m slam_tpu_torch.cli DATASET OUTLIERS
+    METHOD --seed SEED FLAGS --fused FUSED`` on the card, set up on the
+    run's graph."""
+    from slam_tpu_torch import cli
+    from slam_tpu_torch.methods import layering, mcts
+    from slam_tpu_torch.tools.manager_streams import cell_graph
+    from slam_tpu_torch.utils.logging import RunLogger
+
+    cfg = cli.config_from_args(cli.build_parser().parse_args(
+        [dataset, str(outliers), str(method), *flags]))
+    engine = layering if method == 3 else mcts
+    return engine.make_manager(cell_graph(dataset, outliers, seed), cfg,
+                               RunLogger(echo=False), "cuda", fused=fused)
+
+
+def run_manager(mgr) -> tuple:
+    """``(output, wall seconds, launch counts)`` of a manager's run, the
+    counts set to 0 just before it."""
+    from slam_tpu_torch import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = mgr.run()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, ops.launch_counts()
+
+
+def phase_fused_managers(smi: str) -> dict:
+    """Phase 10a: the fused engines through the CLI against the oracle,
+    every chunk under the sync debug mode "error"; then the PCG eval's
+    host reads."""
+    from slam_tpu_torch import ops
+    from slam_tpu_torch.tools.manager_spread import run_cell
+
+    phase = "fused_managers"
+    total = {}
+    with chunks_under_sync_mode("error"):
+        for cell in FUSED_CELLS:
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            row = run_cell(cell, "cuda", stdout_path=os.path.join(
+                REPO, "chiprun_out", f"{cell}.fused.stdout.txt"), fused="on")
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            if not row["fused"] or row["linear_solver"] != "schur":
+                raise AssertionError(f"{phase} {cell}: fused={row['fused']}"
+                                     f" eval {row['linear_solver']}")
+            first = row.pop("first_divergence")
+            n = row["candidates"]
+            log(phase, **{k: (json.dumps(v) if isinstance(v, (list, dict))
+                              else v) for k, v in row.items()},
+                host_reads_per_candidate=0,
+                launches=json.dumps(counts),
+                launches_per_candidate=json.dumps(
+                    {k: c / n for k, c in counts.items()}),
+                card=json.dumps(smi))
+            if first is not None:
+                log(phase, cell=cell, first_divergence=json.dumps(first))
+            row["first_divergence"] = first
+            check_manager_cell(phase, row, FUSED_MANAGER_DIFF_GATES)
+            for k, c in counts.items():
+                total[k] = total.get(k, 0) + c
+    require_launches(phase, total)
+
+    # The PCG eval reads its CG stopping test on the host: the stated
+    # exception, counted (not refused) under the mode "warn".
+    mgr = fused_manager("INTEL", 50, 42, 4, ("--eval-linear", "pcg"))
+    mgr.loop_indices = mgr.loop_indices[:FUSED_PCG_CANDIDATES]
+    syncs = []
+    with chunks_under_sync_mode("warn"), count_syncs(syncs):
+        _, wall, counts = run_manager(mgr)
+    if mgr.eval_cfg.linear_solver != "pcg" or not syncs:
+        raise AssertionError(f"fused_pcg: {mgr.eval_cfg.linear_solver} "
+                             f"eval, {len(syncs)} host reads")
+    log("fused_pcg", cell="intel50_m4", candidates=FUSED_PCG_CANDIDATES,
+        wall_s=round(wall, 3), s_per_candidate=wall / FUSED_PCG_CANDIDATES,
+        short_solves=mgr.ss.solves, lm_iterations=mgr.ss.iterations,
+        host_reads_per_candidate=len(syncs) / FUSED_PCG_CANDIDATES,
+        launches=json.dumps(counts), card=json.dumps(smi))
+    return total
+
+
+def phase_fused_vs_host(smi: str) -> dict:
+    """Phase 10b: method 4 on CSAIL+50 in float64, fused against host on
+    the dense eval (the JAX package's fused-against-host test)."""
+    flags = ("--dtype", "float64", "--eval-linear", "dense")
+    runs = {}
+    with chunks_under_sync_mode("error"):
+        for fused in ("on", "off"):
+            mgr = fused_manager("CSAIL", 50, 0, 4, flags, fused)
+            out, wall, counts = run_manager(mgr)
+            runs[fused] = (out, counts)
+            log("fused_vs_host", engine="fused" if fused == "on" else "host",
+                eval=mgr.eval_cfg.linear_solver, dtype=mgr.eval_cfg.dtype,
+                wall_s=round(wall, 3), short_solves=mgr.ss.solves,
+                layers=len(out.layers), best=out.best_layer,
+                launches=json.dumps(counts), card=json.dumps(smi))
+    fo, ho = runs["on"][0], runs["off"][0]
+    if fo.assignments != ho.assignments or list(fo.layers) != list(ho.layers) \
+            or (fo.best_layer, fo.most_visited_layer, fo.most_edges_layer) \
+            != (ho.best_layer, ho.most_visited_layer, ho.most_edges_layer):
+        raise AssertionError("fused_vs_host: the decisions differ")
+    worst = float(np.abs(fo.poses - ho.poses).max())
+    for lid, hl in ho.layers.items():
+        fl = fo.layers[lid]
+        if (fl.parent, fl.visits) != (hl.parent, hl.visits) \
+                or not (np.array_equal(fl.inherited, hl.inherited)
+                        and np.array_equal(fl.added, hl.added)):
+            raise AssertionError(f"fused_vs_host: layer {lid} differs")
+        worst = max(worst, (fl.poses - hl.poses).abs().max().item(),
+                    abs(fl.total_reward - hl.total_reward))
+    log("fused_vs_host", assignments=len(fo.assignments),
+        layers=len(fo.layers), identical=True, max_abs_diff=worst,
+        atol=FUSED_VS_HOST_ATOL)
+    if not worst <= FUSED_VS_HOST_ATOL:
+        raise AssertionError(f"fused_vs_host: poses or rewards {worst} "
+                             f"apart > {FUSED_VS_HOST_ATOL}")
+    return runs["on"][1]
+
+
+def phase_fused_m3500(smi: str) -> dict:
+    """Phase 10c: M3500+50 method 4 on the fused engine, whole."""
+    from slam_tpu_torch import ops
+    from slam_tpu_torch.tools.manager_spread import run_cell
+
+    with open(os.path.join(REPO, "results", "layer_tables",
+                           "M3500_50out_s0_m4.json")) as f:
+        jax = json.load(f)
+    with chunks_under_sync_mode("error"):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        row = run_cell("m3500_m4", "cuda", stdout_path=os.path.join(
+            REPO, "chiprun_out", "m3500_m4.fused.stdout.txt"), fused="on")
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    log("fused_m3500", **row, launches=json.dumps(counts),
+        jax_f32_layers=len(jax["layers"]),
+        jax_f32_selected=jax["selected_layer"],
+        jax_f32_selected_ate_m=jax["selected_ate"], card=json.dumps(smi))
+    if not row["fused"] or row["decisions"] != row["candidates"]:
+        raise AssertionError(f"fused_m3500: {row['decisions']} of "
+                             f"{row['candidates']} closures decided")
+    require_launches("fused_m3500", counts)
+    return counts
 
 
 def main() -> int:
@@ -1419,6 +1679,9 @@ def main() -> int:
         ("se3_ab", lambda: phase_se3_ab(device, smi)),
         ("golden", lambda: phase_golden(device, smi)),
         ("managers", lambda: phase_managers(smi)),
+        ("fused_managers", lambda: phase_fused_managers(smi)),
+        ("fused_vs_host", lambda: phase_fused_vs_host(smi)),
+        ("fused_m3500", lambda: phase_fused_m3500(smi)),
         ("kernel_times", lambda: phase_kernel_times(timings)),
     ]
     out = {}
@@ -1434,7 +1697,9 @@ def main() -> int:
                 "method2_ab": out["method2_ab"], **out["pcg"],
                 "report_stages": out["report_stages"],
                 "se3_path": out["se3_path"], "se3_ab": out["se3_ab"],
-                "golden": out["golden"], **out["managers"]}
+                "golden": out["golden"], **out["managers"],
+                **{p: out[p] for p in ("fused_managers", "fused_vs_host",
+                                       "fused_m3500")}}
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[path][k], **out["kernels"][k],

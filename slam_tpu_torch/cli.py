@@ -5,11 +5,11 @@ Same positional interface as ``slam_tpu.cli`` (the reference's
 
     python -m slam_tpu_torch.cli INTEL 50 1 --seed 42 --save-path save
 
-Methods 3 (layering) and 4 (MCTS) run the host-driven engines; the fused
-single-program engines (``--fused on``, ``--eval-linear``,
-``--scan-chunk``) are not ported yet.  The device is CUDA unless
-``--device cpu`` is given; the dtype is float32 on CUDA and float64 on CPU
-unless ``--dtype`` says otherwise.
+Methods 3 (layering) and 4 (MCTS) run the fused engines (the decision
+loop on the device) on CUDA and the host-driven engines on the CPU, unless
+``--fused`` says otherwise; ``--checkpoint`` makes any method resumable.
+The device is CUDA unless ``--device cpu`` is given; the dtype is float32
+on CUDA and float64 on CPU unless ``--dtype`` says otherwise.
 """
 
 from __future__ import annotations
@@ -24,10 +24,7 @@ from slam_tpu_torch.config import LayeringConfig, MctsConfig, RunConfig, \
 # ROADMAP queues them.
 _NOT_PORTED = {
     "sweep": "A17 (sweeps)",
-    "checkpoint": "A17 (checkpointed solves)",
     "profile": "A17 (profiling)",
-    "eval_linear": "A14d (the fused method-3/4 engines)",
-    "scan_chunk": "A14d (the fused method-3/4 engines)",
 }
 # Linear solvers of the JAX CLI that are not ported yet.
 _SOLVERS_NOT_PORTED = {"woodbury": "A16"}
@@ -80,20 +77,30 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval-against", default=None,
                    help="nodes file to compute ATE against")
     p.add_argument("--sweep", action="store_true", help="not ported yet")
-    p.add_argument("--checkpoint", default=None, help="not ported yet")
+    p.add_argument("--checkpoint", default=None, metavar="FILE",
+                   help="resumable solves: methods 0-2 persist chunked LM "
+                        "state, methods 3/4 persist the fused engine's "
+                        "state at chunk boundaries (utils/checkpoint.py); "
+                        "re-running with the same FILE resumes")
     p.add_argument("--profile", default=None, help="not ported yet")
     p.add_argument("--report-stages", action="store_true",
                    help="add per-stage (linearize / linear solve / "
                         "retract+cost) times to the solve report")
     p.add_argument("--fused", default="auto", choices=["auto", "on", "off"],
-                   help="methods 3/4 engine: auto and off take the "
-                        "host-driven loop (on, the fused engine, is not "
-                        "ported yet)")
+                   help="methods 3/4 engine: the fused loop (decisions on "
+                        "the device) vs the host-driven loop (auto: fused "
+                        "on CUDA, and whenever --checkpoint is given)")
     p.add_argument("--scan-chunk", type=int, default=None,
-                   help="not ported yet (fused engines)")
+                   help="fused methods 3/4: candidates per chunk, the "
+                        "unit of host read-back and checkpoint (default "
+                        "64)")
     p.add_argument("--eval-linear", default=None,
                    choices=[None, "auto", "schur", "pcg", "dense"],
-                   help="not ported yet (fused engines)")
+                   help="fused methods 3/4: candidate-evaluation solver "
+                        "(auto: the exact partitioned Schur solve on CUDA; "
+                        "on the CPU dense up to 2048 nodes and loose PCG "
+                        "above; pcg is the analog of the reference's 1-2 "
+                        "inexact inner Ceres iterations)")
     p.add_argument("--eval-trust-region", default=None,
                    choices=[None, "nielsen", "ceres"],
                    help="methods 3/4: short-solve bookkeeping of the "
@@ -132,14 +139,18 @@ def config_from_args(args) -> RunConfig:
         init=args.init,
         report_stages=args.report_stages,
         solver=solver,
-        layering=LayeringConfig(**_eval_overrides(args)),
-        mcts=MctsConfig(**_eval_overrides(args)),
+        layering=LayeringConfig(**_fused_overrides(args)),
+        mcts=MctsConfig(**_fused_overrides(args)),
     )
 
 
-def _eval_overrides(args) -> dict:
-    """Methods 3/4 eval overrides from the command line."""
+def _fused_overrides(args) -> dict:
+    """Methods 3/4 engine and eval overrides from the command line."""
     out = {}
+    if args.scan_chunk:
+        out["scan_chunk"] = args.scan_chunk
+    if args.eval_linear:
+        out["eval_linear"] = args.eval_linear
     if args.eval_pcg_iters:
         out["eval_pcg_max_iters"] = args.eval_pcg_iters
     if args.eval_pcg_rtol:
@@ -156,10 +167,6 @@ def main(argv=None) -> int:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported yet (ROADMAP "
                 f"{item})")
-    if args.fused == "on":
-        raise NotImplementedError(
-            "--fused on is not ported yet (ROADMAP A14d, the fused "
-            "method-3/4 engines)")
     if args.linear_solver in _SOLVERS_NOT_PORTED:
         raise NotImplementedError(
             f"--linear-solver {args.linear_solver} is not ported yet "
@@ -168,10 +175,14 @@ def main(argv=None) -> int:
 
     if cfg.method == 3:
         from slam_tpu_torch.methods.layering import run_from_config as run3
-        out = run3(cfg, device=args.device)
+        out = run3(cfg, device=args.device, fused=args.fused,
+                   checkpoint=args.checkpoint)
     elif cfg.method == 4:
         from slam_tpu_torch.methods.mcts import run_from_config as run4
-        out = run4(cfg, device=args.device)
+        out = run4(cfg, device=args.device, fused=args.fused,
+                   checkpoint=args.checkpoint)
+    elif args.checkpoint:
+        out = _run_checkpointed(cfg, args.checkpoint, device=args.device)
     else:
         from slam_tpu_torch.methods.global_solve import run_from_config
         out = run_from_config(cfg, device=args.device)
@@ -199,6 +210,73 @@ def main(argv=None) -> int:
                 os.path.join(cfg.save_path, "trajectory.png"),
             )
     return 0
+
+
+def _run_checkpointed(cfg: RunConfig, ckpt_path: str, device="cuda"):
+    """Methods 0-2 with chunked checkpoint/resume (``utils/checkpoint.py``):
+    the same ``init_*`` and ``opt_*`` files as the global solve and a
+    ``[solve] checkpointed=True`` record.  The solver is the configured
+    one, with ``auto``/``schur`` taken as dense up to 2048 nodes and PCG
+    above, so that no partition is needed."""
+    import os
+
+    import torch
+
+    from slam_tpu_torch import runtime
+    from slam_tpu_torch.config import solver_config_for_method
+    from slam_tpu_torch.io import g2o as g2o_io
+    from slam_tpu_torch.methods.global_solve import GlobalSolveOutput
+    from slam_tpu_torch.solver.init import apply_init
+    from slam_tpu_torch.solver.problem import anchor_first_node, \
+        edge_set_from_graph
+    from slam_tpu_torch.utils.checkpoint import CheckpointingSolver, \
+        load_checkpoint
+    from slam_tpu_torch.utils.logging import RunLogger
+
+    dev = runtime.setup_device(device)
+    os.makedirs(cfg.save_path, exist_ok=True)
+    logger = RunLogger(os.path.join(cfg.save_path, f"method{cfg.method}.log"))
+    try:
+        graph = g2o_io.load_g2o(g2o_io.find_dataset(cfg.dataset))
+        graph = graph.add_random_outliers(cfg.num_outliers, seed=cfg.seed)
+        graph = apply_init(graph, cfg, logger)
+        g2o_io.write_nodes(os.path.join(cfg.save_path, "init_nodes.txt"),
+                           graph.poses)
+        g2o_io.write_edges(os.path.join(cfg.save_path, "init_edges.txt"),
+                           graph)
+
+        scfg = solver_config_for_method(cfg.method, cfg.solver)
+        if scfg.linear_solver in ("auto", "schur"):
+            scfg = scfg.replace(
+                linear_solver="dense" if graph.num_nodes <= 2048 else "pcg")
+        dtype = getattr(torch, scfg.dtype)
+        canon = graph.canonical_order()
+        edges = edge_set_from_graph(canon, dtype=dtype, device=dev)
+        free = anchor_first_node(canon.num_nodes, dtype=dtype, device=dev)
+        poses0 = torch.as_tensor(canon.poses, dtype=dtype, device=dev)
+        sw0 = torch.ones((edges.num_edges,), dtype=dtype, device=dev)
+
+        solver = CheckpointingSolver(ckpt_path, chunk_iters=10)
+        poses, switches, res = solver.run(poses0, sw0, edges, free, scfg,
+                                          total_iters=scfg.max_iterations)
+        if res is not None:
+            final_cost = float(res.cost)
+        else:  # resumed at completion: read the recorded cost
+            state, _ = load_checkpoint(ckpt_path)
+            final_cost = float(state["cost"])
+        logger.log("solve", method=cfg.method, robust=scfg.robust,
+                   checkpointed=True, final_cost=final_cost,
+                   iterations=scfg.max_iterations)
+        poses = poses.cpu().numpy()
+        g2o_io.write_nodes(os.path.join(cfg.save_path, "opt_nodes.txt"),
+                           poses)
+        g2o_io.write_edges(os.path.join(cfg.save_path, "opt_edges.txt"),
+                           graph)
+    finally:
+        logger.close()
+    return GlobalSolveOutput(graph=graph, poses=poses,
+                             switches=switches.cpu().numpy(), result=res,
+                             wall_time_s=0.0)
 
 
 if __name__ == "__main__":

@@ -27,15 +27,42 @@ from slam_tpu_torch.solver.problem import EdgeSet, FreeMask
 Tensor = torch.Tensor
 
 
-def eval_plan(cfg: SolverConfig, edges: EdgeSet):
+def eval_plan(cfg: SolverConfig, edges: EdgeSet, graph=None,
+              schur_blocks: int = 16):
     """The linear plan of the short solves: the dense assembly plan for
-    ``linear_solver="dense"``, nothing for PCG."""
+    ``linear_solver="dense"``, nothing for PCG, and for ``"schur"`` one
+    partition of ``graph`` (the canonical graph of ``edges``) that every
+    masked solve shares: masked-out edges contribute zero blocks, and a
+    node no active edge touches is pinned by the assembly."""
     if cfg.linear_solver == "dense":
         return linear.dense_plan(edges)
     if cfg.linear_solver == "pcg":
         return None
-    raise ValueError("the short solves run on the dense solver or PCG, not "
+    if cfg.linear_solver == "schur" and graph is not None:
+        return schur_plan(graph, cfg, schur_blocks, edges.ij.device)
+    raise ValueError("the short solves run on the dense solver or PCG, or "
+                     "on the Schur solver given the graph, not "
                      f"{cfg.linear_solver!r}")
+
+
+def schur_plan(graph, cfg: SolverConfig, num_blocks: int, device):
+    """The short solves' Schur partition (the JAX fused engines' rule):
+    under ``schur_partition`` "auto"/"graph" the cost model's choice
+    between the index and spectral schemes, and ``num_blocks`` index
+    blocks whenever the index scheme wins (or is asked for)."""
+    from slam_tpu_torch.solver.schur import build_partition, \
+        choose_partition
+
+    nblocks, node_block = num_blocks, None
+    if cfg.schur_partition in ("auto", "graph"):
+        nblocks, node_block = choose_partition(
+            graph.edges_ij, graph.num_nodes, tangent_dim=3,
+            scheme=cfg.schur_partition)
+        if node_block is None:
+            nblocks = num_blocks
+    return build_partition(graph.edges_ij, graph.num_nodes, nblocks,
+                           dtype=getattr(torch, cfg.dtype), device=device,
+                           node_block=node_block)
 
 
 def _check_plan(cfg: SolverConfig, plan) -> None:

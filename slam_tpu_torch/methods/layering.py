@@ -63,15 +63,17 @@ class LayeringOutput:
     most_selected_layer: int
 
 
-def eval_solver_config(solver: SolverConfig, cfg, num_nodes: int
-                       ) -> SolverConfig:
+def eval_solver_config(solver: SolverConfig, cfg, num_nodes: int,
+                       linear: str | None = None) -> SolverConfig:
     """The short solves' configuration (methods 3 and 4): plain residuals
-    under Huber only (``layer_manager.cpp:114-122``), the dense solver up
-    to :data:`DENSE_MAX_NODES` nodes and PCG above unless the caller names
-    one, and the eval trust region and PCG accuracy of ``cfg``."""
-    linear = solver.linear_solver
-    if linear in ("auto", "schur"):
-        linear = "dense" if num_nodes <= DENSE_MAX_NODES else "pcg"
+    under Huber only (``layer_manager.cpp:114-122``), the linear solver
+    ``linear`` or else the host engines' rule (the dense solver up to
+    :data:`DENSE_MAX_NODES` nodes and PCG above unless the caller names
+    one), and the eval trust region and PCG accuracy of ``cfg``."""
+    if linear is None:
+        linear = solver.linear_solver
+        if linear in ("auto", "schur"):
+            linear = "dense" if num_nodes <= DENSE_MAX_NODES else "pcg"
     extra = {}
     if linear == "pcg":
         extra = dict(pcg_rtol=cfg.eval_pcg_rtol,
@@ -120,7 +122,8 @@ class ShortSolves:
     """The edge set, gauge, plan and configuration of a manager's short
     solves on one device, and their count."""
 
-    def __init__(self, graph: PoseGraph, eval_cfg: SolverConfig, device):
+    def __init__(self, graph: PoseGraph, eval_cfg: SolverConfig, device,
+                 schur_blocks: int = 16):
         self.dev = runtime.setup_device(device)
         self.cfg = eval_cfg
         self.dtype = getattr(torch, eval_cfg.dtype)
@@ -129,7 +132,8 @@ class ShortSolves:
         self.free_first = anchor_first_node(graph.num_nodes,
                                             dtype=self.dtype,
                                             device=self.dev)
-        self.plan = batched.eval_plan(eval_cfg, self.edges)
+        self.plan = batched.eval_plan(eval_cfg, self.edges, graph,
+                                      schur_blocks)
         self.solves = 0
         self.iterations = 0
 
@@ -158,6 +162,13 @@ class ShortSolves:
                                       self.edges, self.cfg, num_iters,
                                       self.plan)
         return out
+
+    def device_solve(self, poses, active, free_node, num_iters: int):
+        """``(poses, cost)`` of a masked solve whose masks are device
+        tensors, left on the device (the fused engines' solves)."""
+        self._count(1, num_iters)
+        return batched.masked_solve(poses, active, free_node, self.edges,
+                                    self.cfg, num_iters, self.plan)
 
     def _count(self, n: int, num_iters: int) -> None:
         self.solves += n
@@ -419,10 +430,29 @@ class LayeringManager:
             )
 
 
+def use_fused(fused: str, device, checkpoint: str | None) -> bool:
+    """The engine rule of methods 3 and 4 (the JAX package's, with the
+    card as its accelerator): the fused engine when ``fused`` is "on",
+    when it is "auto" and the device is CUDA, and whenever a checkpoint
+    is given (only the fused engine checkpoints); else the host engine."""
+    if fused not in ("auto", "on", "off"):
+        raise ValueError(f"fused must be auto, on or off, not {fused!r}")
+    cuda = torch.device("cuda" if device is None else device).type == "cuda"
+    return fused == "on" or (fused == "auto" and cuda) \
+        or checkpoint is not None
+
+
 def make_manager(graph, cfg: RunConfig, logger,
-                 device: str | torch.device | None = "cuda"
-                 ) -> LayeringManager:
-    """The method-3 engine: the host-driven manager."""
+                 device: str | torch.device | None = "cuda",
+                 fused: str = "auto", checkpoint: str | None = None):
+    """The method-3 engine (see :func:`use_fused`): the host-driven
+    manager or the fused one (``layering_fused.py``).  ``checkpoint``
+    makes the fused engine resumable at its chunk boundaries."""
+    if use_fused(fused, device, checkpoint):
+        from slam_tpu_torch.methods.layering_fused import \
+            FusedLayeringManager
+        return FusedLayeringManager(graph, cfg.layering, cfg.solver, logger,
+                                    device, checkpoint_path=checkpoint)
     return LayeringManager(graph, cfg.layering, cfg.solver, logger, device)
 
 
@@ -454,24 +484,30 @@ def plots_available(logger: RunLogger) -> bool:
 
 
 def log_engine(logger: RunLogger, mgr, wall: float) -> None:
-    """The ``[engine]`` record of a run: its short solves, their LM
-    iterations and the manager's wall seconds."""
+    """The ``[engine]`` record of a run: the engine, its short solves,
+    their LM iterations, the fused engine's chunks and the manager's wall
+    seconds."""
+    chunks = getattr(mgr, "chunks", None)
     logger.log("engine", device=str(mgr.ss.dev),
                linear_solver=mgr.eval_cfg.linear_solver,
-               dtype=mgr.eval_cfg.dtype, short_solves=mgr.ss.solves,
+               dtype=mgr.eval_cfg.dtype, fused=chunks is not None,
+               chunks=0 if chunks is None else chunks,
+               short_solves=mgr.ss.solves,
                lm_iterations=mgr.ss.iterations, wall_s=wall)
 
 
 def run_from_config(cfg: RunConfig,
-                    device: str | torch.device | None = "cuda"
+                    device: str | torch.device | None = "cuda",
+                    fused: str = "auto", checkpoint: str | None = None
                     ) -> LayeringOutput:
     """Reference-equivalent method-3 pipeline with ``save/`` artifacts
-    (``layer_manager.cpp:546-600``)."""
+    (``layer_manager.cpp:546-600``); ``fused`` and ``checkpoint`` pick
+    the engine (:func:`make_manager`)."""
     os.makedirs(cfg.save_path, exist_ok=True)
     logger = RunLogger(os.path.join(cfg.save_path, "method3.log"))
     try:
         graph = load_for_manager(cfg, logger)
-        mgr = make_manager(graph, cfg, logger, device)
+        mgr = make_manager(graph, cfg, logger, device, fused, checkpoint)
         t0 = time.perf_counter()
         out = mgr.run()
         log_engine(logger, mgr, time.perf_counter() - t0)

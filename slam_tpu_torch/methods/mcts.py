@@ -29,7 +29,7 @@ from slam_tpu_torch.graph import CLOSURE_EDGE, ODOMETRY_EDGE, PoseGraph
 from slam_tpu_torch.io import g2o
 from slam_tpu_torch.methods.layering import ShortSolves, \
     eval_solver_config, host_poses, host_rows, info_gain_np, \
-    load_for_manager, log_engine, plots_available
+    load_for_manager, log_engine, plots_available, use_fused
 from slam_tpu_torch.utils.logging import RunLogger
 
 
@@ -322,21 +322,29 @@ class MctsManager:
 
 
 def make_manager(graph, cfg: RunConfig, logger,
-                 device: str | torch.device | None = "cuda") -> MctsManager:
-    """The method-4 engine: the host-driven manager."""
+                 device: str | torch.device | None = "cuda",
+                 fused: str = "auto", checkpoint: str | None = None):
+    """The method-4 engine (``layering.use_fused``): the host-driven
+    manager or the fused one (``mcts_fused.py``)."""
+    if use_fused(fused, device, checkpoint):
+        from slam_tpu_torch.methods.mcts_fused import FusedMctsManager
+        return FusedMctsManager(graph, cfg.mcts, cfg.solver, logger, device,
+                                checkpoint_path=checkpoint)
     return MctsManager(graph, cfg.mcts, cfg.solver, logger, device)
 
 
 def run_from_config(cfg: RunConfig,
-                    device: str | torch.device | None = "cuda"
+                    device: str | torch.device | None = "cuda",
+                    fused: str = "auto", checkpoint: str | None = None
                     ) -> MctsOutput:
     """Reference-equivalent method-4 pipeline with ``save/`` artifacts
-    (``simple_layer_manager.cpp:705-787``)."""
+    (``simple_layer_manager.cpp:705-787``); ``fused`` and ``checkpoint``
+    pick the engine (:func:`make_manager`)."""
     os.makedirs(cfg.save_path, exist_ok=True)
     logger = RunLogger(os.path.join(cfg.save_path, "method4.log"))
     try:
         graph = load_for_manager(cfg, logger)
-        mgr = make_manager(graph, cfg, logger, device)
+        mgr = make_manager(graph, cfg, logger, device, fused, checkpoint)
         t0 = time.perf_counter()
         out = mgr.run()
         log_engine(logger, mgr, time.perf_counter() - t0)

@@ -139,13 +139,21 @@ def _propose(s: LMState, edges, free, cfg, model, plan, kw, gnc):
     return new_poses, new_switches, new_cost, prev_cost, model_red, inner
 
 
+def _scalar(v, **kw) -> Tensor:
+    """A 0-d tensor of ``v``: a number is filled in on the device (no
+    host-to-device copy, which would synchronise), a tensor converted."""
+    if isinstance(v, Tensor):
+        return v.to(**kw)
+    return torch.full((), v, **kw)
+
+
 def _init_state(poses0, switches0, cost0, cfg, lam0=None, nu0=None,
                 it0=None) -> LMState:
     kw = dict(dtype=poses0.dtype, device=poses0.device)
     return LMState(
         poses=poses0, switches=switches0, cost=cost0,
-        lam=torch.as_tensor(cfg.init_lambda if lam0 is None else lam0, **kw),
-        nu=torch.as_tensor(2.0 if nu0 is None else nu0, **kw),
+        lam=_scalar(cfg.init_lambda if lam0 is None else lam0, **kw),
+        nu=_scalar(2.0 if nu0 is None else nu0, **kw),
         it=0 if it0 is None else int(it0),
         accepted=torch.zeros((), dtype=torch.int64, device=poses0.device),
         converged=torch.zeros((), dtype=torch.bool, device=poses0.device),

@@ -280,6 +280,36 @@ def test_manager_oracle_copy_is_bitwise(dirty_circle, method):
         np.testing.assert_array_equal(a.poses, b.poses)
 
 
+def test_checkpoint_copies_are_bitwise(tmp_path):
+    """``save_checkpoint``/``load_checkpoint``/``lm_state_dict`` of the
+    port read and write the JAX package's layout, and ``fingerprint`` is
+    the JAX one."""
+    from slam_tpu.methods._fused_common import fingerprint as jfp
+    from slam_tpu.utils import checkpoint as jck
+    from slam_tpu_torch.methods._fused_common import fingerprint
+    from slam_tpu_torch.utils import checkpoint as tck
+
+    state = tck.lm_state_dict(np.arange(15.0).reshape(5, 3), np.ones(7),
+                              1e-3, 12, 0.5, nu=4.0)
+    jstate = jck.lm_state_dict(np.arange(15.0).reshape(5, 3), np.ones(7),
+                               1e-3, 12, 0.5, nu=4.0)
+    assert list(state) == list(jstate)
+    for mod_w, mod_r in ((tck, jck), (jck, tck)):
+        path = str(tmp_path / f"{mod_w.__name__}.npz")
+        mod_w.save_checkpoint(path, state, meta={"note": "x", "done": 3})
+        back, meta = mod_r.load_checkpoint(path)
+        assert meta == {"note": "x", "done": 3}
+        assert list(back) == list(state)
+        for k, v in state.items():
+            assert back[k].dtype == v.dtype
+            np.testing.assert_array_equal(back[k], v)
+    rng = np.random.default_rng(0)
+    arrays = (rng.normal(size=(9, 3)), rng.integers(0, 9, (4, 2)),
+              np.arange(5, dtype=np.int32))
+    assert fingerprint(*arrays, extra="m4|cfg") \
+        == jfp(*arrays, extra="m4|cfg")
+
+
 _JAX_IMPORT = re.compile(r"^\s*(from|import)\s+(slam_tpu|jax|jaxlib)(\.|\s|$)",
                          re.M)
 
@@ -291,6 +321,8 @@ def test_port_sources_import_no_slam_tpu():
     for new in ("solver/tridiag.py", "solver/linear.py", "solver/report.py",
                 "solver/ceres_oracle.py", "solver/manager_oracle.py",
                 "methods/batched.py", "methods/layering.py", "methods/mcts.py",
+                "methods/_fused_common.py", "methods/layering_fused.py",
+                "methods/mcts_fused.py", "utils/checkpoint.py",
                 "tools/manager_streams.py", "tools/manager_spread.py"):
         assert REPO / "slam_tpu_torch" / new in files, new
     bad = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"

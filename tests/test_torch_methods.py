@@ -582,16 +582,6 @@ def test_cli_runs_the_managers_on_cpu(tmp_path, circle, method):
     assert ms.best_layer(lines, method).startswith("L")
 
 
-@pytest.mark.parametrize("argv", [
-    ["INTEL", "0", "3", "--fused", "on"], ["INTEL", "0", "4", "--fused", "on"],
-    ["INTEL", "0", "3", "--eval-linear", "schur"],
-    ["INTEL", "0", "4", "--scan-chunk", "16"],
-])
-def test_cli_refuses_the_fused_engines(argv):
-    with pytest.raises(NotImplementedError, match="A14d"):
-        cli.main(argv)
-
-
 def test_cli_eval_overrides():
     args = cli.build_parser().parse_args(
         ["INTEL", "0", "3", "--eval-trust-region", "ceres",
