@@ -125,7 +125,40 @@ the script exits non-zero and prints no result line):
    whole: every closure decided, finite poses, and its layers, chosen
    layers and ATE beside the JAX float32 record
    (``results/layer_tables/M3500_50out_s0_m4.json``), not gated;
-11. the kernels' times, after the end-to-end phases and with every
+11. the last modules (Woodbury, sweeps, the distributed solvers,
+   profiling):
+   (a) ``woodbury_path``: ``INTEL 50 1 --seed 42 --linear-solver woodbury
+   --dtype float64`` through the CLI, ATE below ``ATE_GATE_M``; 50
+   ``lm_fixed_iters`` of plain DCS on the Woodbury solver in float64,
+   within ``WOODBURY_REF_COST_RTOL`` of its float64 JAX reference, and in
+   float32, gated on finite output only (its correction cancels);
+   (b) ``sweep``: ``INTEL 50 1 --sweep`` (methods 0 and 1, outliers 0,
+   10 and 50, seed 0): every row finite, each method-1 row's ATE against
+   the clean solve below ``ATE_GATE_M``, and the (1, 50, 0) cell's cost
+   and ATE equal to the bit to the same cell run alone;
+   (c) ``dist_edge``: ``distributed_lm`` on INTEL+50 seed 42 (plain DCS,
+   float64, 5 LM iterations, CG to 1e-10 or 400 iterations) at
+   ``DIST_EDGE_RANKS`` ranks sharing the card (gloo), held to the
+   single-process block-Jacobi PCG at ``DIST_EDGE_TOL``, every rank's
+   poses bitwise equal; then at one rank under nccl; and
+   ``init_multihost`` from torchrun's environment in this process: the
+   card, nccl, and meshes that carry the card;
+   (d) ``dist_schur``: ``slam_tpu_torch/tools/dist_check.py`` (M3500+50,
+   ``DIST_SCHUR_RANKS`` ranks sharing the card, gloo, float32,
+   contiguous and spectral blocks) under its gates, with the wall and the
+   bytes reduced per iteration and the share of the wall in collectives;
+   the replica batch of two CSAIL+50 seeds on 2 x 2 ranks (float64),
+   each replica within ``BATCH_REL`` of its seed alone on 2 ranks, and
+   each seed alone on 2 ranks, the batch, and the first seed on 4 ranks
+   (contiguous and spectral) held to the single-process Schur at
+   ``DIST_SCHUR_F64_TOL``;
+   (e) ``profile``: ``INTEL 50 1 --seed 42 --profile DIR`` in a child
+   process: its trace names each kernel's symbol once per launch of
+   phase 3's run, and its final cost and poses equal phase 3's to the
+   bit;
+   phase 2 also replays one Woodbury iteration, one rank's calls of the
+   edge-parallel LM and of the distributed Schur LM at these shapes;
+12. the kernels' times, after the end-to-end phases and with every
    profiler session last, since one leaves the later host-bound calls of
    its process slower (``[kernels]`` lines, float32; and
    ``micro_chol_inv`` in float64): per launch and per plan of the
@@ -140,6 +173,8 @@ the script exits non-zero and prints no result line):
 
 Each phase that drives a path names the kernels the path must launch; the
 launch counts are set to 0 just before the path and read just after.
+After the last phase the script stops the ranks' forkserver and resource
+tracker and fails if any process it started is still there.
 Then one JSON line of per-kernel results, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
@@ -284,6 +319,32 @@ MANAGER_KERNEL_CELLS = {"INTEL+50": ("INTEL", 50, 42),
                         "CSAIL+50": ("CSAIL", 50, 0)}
 FUSED_KERNEL_CELLS = {"INTEL+50": ("INTEL", 50, 42),
                       "M3500+50": ("M3500", 50, 0)}
+# Phase 11 (Woodbury, sweeps, distributed solvers, profiling).  The
+# Woodbury plain-DCS run in float64 against its float64 JAX reference; the
+# float32 run is gated on finite output only (the JAX package measured
+# that its correction z - W y cancels in float32).
+WOODBURY_REF_COST_RTOL = 1e-6
+# [dist_edge]: ranks sharing the card, LM iterations, and the JAX test's
+# tolerances against the single-process PCG (tests/test_distributed.py).
+DIST_EDGE_RANKS = 4
+DIST_EDGE_ITERS = 5
+DIST_EDGE_TOL = {"cost0": 1e-10, "cost": 1e-6, "poses": 1e-5}
+# [dist_schur]: tools/dist_check at P = 8 ranks; the replica batch of two
+# CSAIL+50 seeds on 2 x 2 ranks against each seed alone on 2 ranks.
+DIST_SCHUR_RANKS = 8
+DIST_SCHUR_ITERS = 5
+BATCH_SEEDS = (0, 1)
+BATCH_ITERS = 6
+BATCH_REL = 1e-6
+# [dist_schur] in float64: CSAIL+50 on 2 ranks (each seed, the batch's
+# replica rows and the batch) and on 4 ranks (contiguous and spectral)
+# against the single-process Schur lm_fixed_iters at the same block count.
+DIST_SCHUR_F64_TOL = {"cost0": 1e-12, "cost": 1e-9, "poses": 1e-7}
+# [profile]: each kernel's symbol in a trace.
+PROFILE_SYMBOLS = {"gather_rows": "gather_rows_kernel",
+                   "scatter_add_rows": "scatter_add_rows_kernel",
+                   "fused_linearize_se2": "linearize_se2_kernel",
+                   "micro_chol_inv": "micro_chol_inv_kernel"}
 PANEL = 128               # schur_panel of the blocked path
 KERNEL_INFO = {  # name: (source, TPU kernel it replaces, phase that runs it)
     "gather_rows": ("slam_tpu_torch/csrc/gather.cu",
@@ -312,8 +373,12 @@ PHASE_KERNELS = {
     "golden": ("gather_rows", "scatter_add_rows", "fused_linearize_se2"),
     **{phase: ("gather_rows", "scatter_add_rows", "fused_linearize_se2")
        for phase in (*MANAGER_PHASES, "fused_managers", "fused_vs_host",
-                     "fused_m3500")},
+                     "fused_m3500", "woodbury_path", "sweep", "dist_edge",
+                     "dist_edge_nccl", "dist_schur", "dist_schur_spectral",
+                     "profile")},
 }
+#: What the main path and phase 11's [profile] compare.
+MAIN_RUN = {}
 # Launches per LM iteration of native INTEL plain DCS (phase 6d): one
 # gather per source outside the linearisation (which reads its endpoints
 # itself) and one scatter per group of sums.
@@ -548,6 +613,106 @@ def check_manager_shapes(device, dtype, graphs: dict,
         check_short_solves(f"{cell}-fused-m3", ss, cases, dtype)
 
 
+def one_rank_mesh(axis: str, device):
+    """A one-rank mesh of this process (its group must be joined) for
+    replaying one rank's kernel calls at the distributed shapes."""
+    from slam_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh(axes=(axis,), shape={axis: 1}, index={axis: 0},
+                groups={axis: None}, rank=0, world_size=1, device=device)
+
+
+def check_phase11_shapes(device, dtype) -> None:
+    """Phase 2 on phase 11's shapes: one Woodbury iteration of INTEL+50
+    (the low-rank rows' gather, the grouped scatter of U and the
+    subtracted diagonals); one rank's calls of the edge-parallel LM (a
+    quarter of INTEL+50's padded edges, as at DIST_EDGE_RANKS ranks: the
+    linearisation, the matvec's gather and scatter, 3 CG iterations) and
+    of the distributed Schur LM (block 3 of M3500+50 cut into
+    DIST_SCHUR_RANKS contiguous blocks: the slot gather, the grouped
+    assembly into the block grids, the update's scatter), each recorded
+    and replayed through :func:`check_launches`, and the linearisation
+    on the edge shard held to its plain version.  The distributed calls
+    run in a one-rank gloo group of this process (their reductions are
+    identities, so the numbers are not a solve's)."""
+    import torch.distributed as dist
+
+    from slam_tpu_torch.config import SolverConfig
+    from slam_tpu_torch.io import g2o
+    from slam_tpu_torch.ops.linearize import fused_linearize_se2_indexed, \
+        fused_linearize_se2_indexed_plain
+    from slam_tpu_torch.parallel import distributed, schur_dist
+    from slam_tpu_torch.parallel.mesh import BLOCK_AXIS, EDGE_AXIS, Mesh
+    from slam_tpu_torch.solver.models import SE2Model
+    from slam_tpu_torch.solver.problem import anchor_first_node, \
+        edge_set_from_graph
+    from slam_tpu_torch.tools import kernel_times as kt
+    from slam_tpu_torch.tools.problems import intel50_plain
+
+    name = str(dtype).replace("torch.", "")
+    prob = intel50_plain(device, name, "dcs", "woodbury")
+    args = (prob.poses0, prob.switches0, prob.edges, prob.free)
+    calls, counts, _ = kt.record_iteration(args, prob.scfg, prob.partition)
+    log("kernels", shape="INTEL-woodbury", dtype=name,
+        lowrank_edges=prob.partition.num_lowrank, checked_calls=len(calls),
+        scatter_max_abs_err=check_launches(calls, "INTEL-woodbury", name),
+        launches_per_run=json.dumps(counts))
+
+    with tempfile.TemporaryDirectory() as rdv:
+        dist.init_process_group("gloo", init_method=f"file://{rdv}/r",
+                                rank=0, world_size=1)
+        try:
+            g = g2o.load_g2o(g2o.find_dataset("INTEL")).add_random_outliers(
+                50, seed=42).canonical_order()
+            edges = distributed.pad_edges_for_mesh(
+                edge_set_from_graph(g, dtype=dtype, device=device),
+                DIST_EDGE_RANKS)
+            k = 1
+            shard = distributed.shard_edges(edges, Mesh(
+                axes=(EDGE_AXIS,), shape={EDGE_AXIS: DIST_EDGE_RANKS},
+                index={EDGE_AXIS: k}, groups={EDGE_AXIS: None}, rank=k,
+                world_size=DIST_EDGE_RANKS, device=device))
+            poses = torch.as_tensor(g.poses, dtype=dtype, device=device)
+            free = anchor_first_node(g.num_nodes, dtype=dtype, device=device)
+            cfg = SolverConfig(robust="dcs", linear_solver="pcg",
+                               dtype=name, pcg_max_iters=3)
+            calls = kt.record(lambda: distributed.distributed_lm(
+                poses, shard, free, cfg, one_rank_mesh(EDGE_AXIS, device),
+                1))
+            what = f"INTEL-edge-shard{k}of{DIST_EDGE_RANKS}"
+            got = fused_linearize_se2_indexed(poses, free.node, shard, 0.5,
+                                              0.01, robust="dcs")
+            torch.cuda.synchronize()
+            errs = linearize_errs(f"{what} {name}", got,
+                                  fused_linearize_se2_indexed_plain(
+                                      poses, free.node, shard.ab, shard.meas,
+                                      shard.loop_f, shard.active, 0.5, 0.01,
+                                      "dcs"), dtype)
+            log("kernels", shape=what, dtype=name, edges=shard.num_edges,
+                checked_calls=len(calls),
+                scatter_max_abs_err=check_launches(calls, what, name),
+                linearize_max_abs_err=max(e for e, _ in errs.values()))
+
+            m = g2o.load_g2o(g2o.find_dataset("M3500")).add_random_outliers(
+                50, seed=0).canonical_order()
+            dprob = schur_dist.build_dist_problem(m, DIST_SCHUR_RANKS)
+            k = 3
+            block = schur_dist.shard_problem(dprob, k, m.num_nodes,
+                                             dtype=dtype, device=device)
+            mposes = torch.as_tensor(m.poses, dtype=dtype, device=device)
+            mfree = anchor_first_node(m.num_nodes, dtype=dtype,
+                                      device=device)
+            calls = kt.record(lambda: schur_dist._schur_lm_shard(
+                mposes, block, mfree, cfg.replace(linear_solver="schur"),
+                one_rank_mesh(BLOCK_AXIS, device), 1, SE2Model))
+            what = f"M3500-block{k}of{DIST_SCHUR_RANKS}"
+            log("kernels", shape=what, dtype=name, ni=dprob.ni, ns=dprob.ns,
+                ek=dprob.ek, checked_calls=len(calls),
+                scatter_max_abs_err=check_launches(calls, what, name))
+        finally:
+            dist.destroy_process_group()
+
+
 def summary_row(rows: list, prefix: str) -> dict:
     """The timing row of the call labelled ``prefix``."""
     for row in rows:
@@ -754,6 +919,7 @@ def phase_kernels(device, peaks, timings: list) -> dict:
                 launches_per_run=json.dumps(counts))
 
         check_manager_shapes(device, dtype, manager_graphs, fused_graphs)
+        check_phase11_shapes(device, dtype)
 
         # SE(3), D = 6: one iteration of the sphere2500 recipe under the
         # native and the blocked factorisation (in float32 the blocked
@@ -842,9 +1008,12 @@ def phase_main_path() -> dict:
                        save])
         if rc != 0:
             raise AssertionError(f"cli.main returned {rc}")
+        MAIN_RUN["solve"] = log_record(os.path.join(save, "method1.log"),
+                                       "solve")
 
     counts, wall, poses = run_cli_path("main_path", run)
     ate = golden_ate("main_path", poses)
+    MAIN_RUN.update(poses=poses, ate=ate, launches=counts)
     log("main_path", wall_s=round(wall, 3), ate_vs_golden_m=ate,
         launches=json.dumps(counts))
     if not ate < ATE_GATE_M:
@@ -1634,6 +1803,438 @@ def phase_fused_m3500(smi: str) -> dict:
     return counts
 
 
+def phase_woodbury(device, smi: str) -> dict:
+    """Phase 11a: ``INTEL 50 1 --seed 42 --linear-solver woodbury --dtype
+    float64`` through the CLI; 50 ``lm_fixed_iters`` of plain DCS on the
+    Woodbury solver in float64 (held to its float64 JAX reference) and
+    in float32 (finite only)."""
+    from slam_tpu_torch import cli
+    from slam_tpu_torch.tools.problems import intel50_plain
+
+    got = {}
+
+    def run(save):
+        if cli.main(["INTEL", "50", "1", "--seed", "42", "--linear-solver",
+                     "woodbury", "--dtype", "float64", "--save-path",
+                     save]) != 0:
+            raise AssertionError("woodbury_path: cli.main failed")
+        logf = os.path.join(save, "method1.log")
+        got["solve"] = log_record(logf, "solve")
+        got["woodbury"] = log_record(logf, "woodbury")
+
+    counts, wall, poses = run_cli_path("woodbury_path", run)
+    ate = golden_ate("woodbury_path", poses)
+    log("woodbury_path", wall_s=round(wall, 3), ate_vs_golden_m=ate,
+        final_cost=float(got["solve"]["final_cost"]),
+        lowrank_edges=int(got["woodbury"]["lowrank_edges"]),
+        iterations=int(got["solve"]["iterations"]),
+        launches=json.dumps(counts), card=json.dumps(smi))
+    if not ate < ATE_GATE_M:
+        raise AssertionError(f"woodbury_path: ATE {ate} m >= {ATE_GATE_M} m")
+    require_launches("woodbury_path", counts)
+
+    key = "intel50_plain_dcs_woodbury_lm_fixed_iters"
+    ref = reference(key)
+    iters = ref["iterations"]
+    for name in ("float64", "float32"):
+        prob = intel50_plain(device, name, "dcs", "woodbury")
+        args = (prob.poses0, prob.switches0, prob.edges, prob.free)
+        timed_lm(args, prob.scfg, 1, prob.partition)  # warm-up
+        res, wall, lm_counts, cost = timed_lm(args, prob.scfg, iters,
+                                              prob.partition)
+        rel = abs(cost - ref["final_cost"]) / abs(ref["final_cost"])
+        log("woodbury_path", dtype=name, final_cost=cost,
+            initial_cost=float(res.initial_cost),
+            reference_f64=ref["final_cost"], rel_diff=rel,
+            gate=WOODBURY_REF_COST_RTOL if name == "float64" else "finite",
+            accepted=int(res.accepted), iters=iters, wall_s=round(wall, 4),
+            ms_per_iter=round(wall * 1e3 / iters, 4),
+            lowrank_edges=prob.partition.num_lowrank,
+            launches_per_iter=json.dumps({k: n / iters
+                                          for k, n in lm_counts.items()}),
+            card=json.dumps(smi))
+        if name == "float64":
+            held_to("woodbury_path", cost, key, WOODBURY_REF_COST_RTOL)
+        elif not np.isfinite(cost):
+            raise AssertionError(f"woodbury_path float32: cost {cost}")
+    return counts
+
+
+def phase_sweep(device, smi: str) -> dict:
+    """Phase 11b: ``INTEL 50 1 --sweep`` (methods 0 and 1, outlier counts
+    0, 10 and 50, seed 0); its (1, 50, 0) cell against the same cell run
+    alone."""
+    from slam_tpu_torch import cli, ops
+    from slam_tpu_torch.config import RunConfig
+    from slam_tpu_torch.eval import metrics
+    from slam_tpu_torch.io import g2o
+    from slam_tpu_torch.methods.global_solve import run_global_solve
+    from slam_tpu_torch.utils.logging import RunLogger
+
+    argv = ["INTEL", "50", "1", "--sweep"]
+    with tempfile.TemporaryDirectory() as save:
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with open(os.devnull, "w") as null, \
+                contextlib.redirect_stdout(null):
+            rc = cli.main([*argv, "--save-path", save])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        if rc != 0:
+            raise AssertionError(f"sweep: cli.main returned {rc}")
+        with open(os.path.join(save, "sweep.json")) as f:
+            rows = json.load(f)
+    cells = [(r["method"], r["num_outliers"], r["seed"]) for r in rows]
+    want = [(m, c, 0) for m in (0, 1) for c in (0, 10, 50)]
+    if cells != want:
+        raise AssertionError(f"sweep: cells {cells}, not {want}")
+    for r in rows:
+        vals = [r[k] for k in ("final_cost", "initial_cost", "ate_vs_clean",
+                               "collapse_score")]
+        if not np.all(np.isfinite(vals)):
+            raise AssertionError(f"sweep: non-finite row {r}")
+        log("sweep", method=r["method"], outliers=r["num_outliers"],
+            final_cost=r["final_cost"], iterations=r["iterations"],
+            ate_vs_clean_m=r["ate_vs_clean"],
+            collapse=r["collapse_score"], wall_s=round(r["wall_s"], 3))
+    bad = [r for r in rows
+           if r["method"] == 1 and not r["ate_vs_clean"] < ATE_GATE_M]
+    if bad:
+        raise AssertionError(f"sweep: method-1 ATE >= {ATE_GATE_M} m: {bad}")
+
+    solver = cli.config_from_args(cli.build_parser().parse_args(argv)).solver
+    graph = g2o.load_g2o(g2o.find_dataset("INTEL"))
+    quiet = RunLogger(echo=False)
+    clean = run_global_solve(graph, RunConfig(
+        dataset="INTEL", method=0, num_outliers=0, solver=solver), quiet,
+        device=device)
+    alone = run_global_solve(graph.add_random_outliers(50, seed=0),
+                             RunConfig(dataset="INTEL", method=1,
+                                       num_outliers=50, seed=0,
+                                       solver=solver), quiet, device=device)
+    cell = rows[cells.index((1, 50, 0))]
+    got = (float(alone.result.cost), metrics.ate(alone.poses, clean.poses))
+    log("sweep", wall_s=round(wall, 3), cells=len(rows),
+        cell_1_50_0=json.dumps([cell["final_cost"], cell["ate_vs_clean"]]),
+        alone=json.dumps(got), launches=json.dumps(counts),
+        card=json.dumps(smi))
+    if got != (cell["final_cost"], cell["ate_vs_clean"]):
+        raise AssertionError(f"sweep: cell (1, 50, 0) "
+                             f"{(cell['final_cost'], cell['ate_vs_clean'])} "
+                             f"differs from the run alone {got}")
+    require_launches("sweep", counts)
+    return counts
+
+
+def intel50_dataset_graph():
+    """INTEL+50 seed 42 at the dataset's poses, canonical order (the
+    distributed tests' setting: no init, no padding)."""
+    from slam_tpu_torch.io import g2o
+
+    return g2o.load_g2o(g2o.find_dataset("INTEL")).add_random_outliers(
+        50, seed=42).canonical_order()
+
+
+def check_init_multihost() -> None:
+    """``init_multihost()`` under torchrun's environment for one rank:
+    it joins on the card of the local rank under nccl, the meshes carry
+    that card, and a reduction runs there."""
+    import socket
+
+    import torch.distributed as tdist
+
+    from slam_tpu_torch.parallel import mesh
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        mesh.init_multihost()
+        m = mesh.make_edge_mesh()
+        t = torch.ones(4, device=m.device)
+        mesh.all_reduce(t, m, mesh.EDGE_AXIS)
+        got = dict(backend=tdist.get_backend(), device=str(m.device),
+                   block_mesh=str(mesh.make_block_mesh().device),
+                   current=torch.cuda.current_device(),
+                   reduced=float(t.sum()))
+        log("dist_edge", init_multihost=json.dumps(got))
+        want = dict(backend="nccl", device="cuda:0", block_mesh="cuda:0",
+                    current=0, reduced=4.0)
+        if got != want:
+            raise AssertionError(f"init_multihost: {got}, not {want}")
+    finally:
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_dist_edge(device, smi: str) -> dict:
+    """Phase 11c: ``distributed_lm`` on INTEL+50 at DIST_EDGE_RANKS ranks
+    sharing the card (gloo), float64, held to the single-process PCG
+    ``lm_fixed_iters`` with the same block-Jacobi preconditioner; then at
+    one rank under nccl."""
+    from slam_tpu_torch.config import SolverConfig
+    from slam_tpu_torch.parallel import distributed, mesh
+    from slam_tpu_torch.solver.lm import lm_fixed_iters
+    from slam_tpu_torch.solver.problem import anchor_first_node, \
+        edge_set_from_graph
+
+    g = intel50_dataset_graph()
+    cfg = SolverConfig(robust="dcs", linear_solver="pcg", dtype="float64",
+                       pcg_max_iters=400, pcg_rtol=1e-10,
+                       pcg_preconditioner="jacobi")
+    dtype = torch.float64
+    edges = edge_set_from_graph(g, dtype=dtype, device=device)
+    t0 = time.perf_counter()
+    ref = lm_fixed_iters(
+        torch.as_tensor(g.poses, dtype=dtype, device=device),
+        torch.ones(edges.num_edges, dtype=dtype, device=device), edges,
+        anchor_first_node(g.num_nodes, dtype=dtype, device=device), cfg,
+        DIST_EDGE_ITERS)
+    ref_cost = float(ref.cost)
+    ref_wall = time.perf_counter() - t0
+    ref_poses = ref.poses.cpu().numpy()
+    out = {}
+    for phase, ranks, backend in (("dist_edge", DIST_EDGE_RANKS, "gloo"),
+                                  ("dist_edge_nccl", 1, None)):
+        t0 = time.perf_counter()
+        res = mesh.launch(ranks, distributed.edge_lm_job, g, cfg,
+                          DIST_EDGE_ITERS, True, device=device,
+                          backend=backend, all_ranks=True, timeout=600)
+        launch_s = time.perf_counter() - t0
+        r = res[0]
+        same = mesh.bitwise_equal([x["poses"] for x in res])
+        errs = {"cost0": abs(r["cost0"] - float(ref.initial_cost))
+                / abs(float(ref.initial_cost)),
+                "cost": abs(r["cost"] - ref_cost) / abs(ref_cost),
+                "poses": float(np.abs(r["poses"] - ref_poses).max())}
+        log(phase, ranks=ranks, backend=r["backend"], cost0=r["cost0"],
+            cost=r["cost"], single_process_cost=ref_cost,
+            errs=json.dumps(errs), tol=json.dumps(DIST_EDGE_TOL),
+            ranks_bitwise_equal=same,
+            wall_per_iter_s=max(x["wall_s"] for x in res) / DIST_EDGE_ITERS,
+            single_process_wall_per_iter_s=ref_wall / DIST_EDGE_ITERS,
+            collectives_per_iter=r["calls"] / DIST_EDGE_ITERS,
+            reduced_bytes_per_iter=r["bytes"] / DIST_EDGE_ITERS,
+            collective_share=max(x["seconds"] / x["wall_s"] for x in res),
+            launches_per_iter_rank0=json.dumps(
+                {k: n / DIST_EDGE_ITERS for k, n in r["launches"].items()}),
+            launch_s=round(launch_s, 2), launch=json.dumps(mesh.LAST_LAUNCH),
+            setup_s=max(x["setup_s"] for x in res), card=json.dumps(smi))
+        want = "gloo" if ranks > 1 else "nccl"
+        if r["backend"] != want:
+            raise AssertionError(f"{phase}: backend {r['backend']}")
+        if not same:
+            raise AssertionError(f"{phase}: ranks' poses differ")
+        bad = {k: v for k, v in errs.items() if not v <= DIST_EDGE_TOL[k]}
+        if bad:
+            raise AssertionError(f"{phase}: {bad} above {DIST_EDGE_TOL}")
+        require_launches(phase, r["launches"])
+        out[phase] = r["launches"]
+    check_init_multihost()
+    return out
+
+
+def phase_dist_schur(device, smi: str) -> dict:
+    """Phase 11d: ``tools/dist_check`` (M3500+50, DIST_SCHUR_RANKS ranks
+    sharing the card, gloo, float32, contiguous and spectral) under its
+    gates; the replica batch of CSAIL+50 seeds on 2 x 2 ranks against
+    each seed alone on 2 ranks, and those, the batch and the first seed
+    on 4 ranks (contiguous and spectral) against the single-process
+    Schur (float64)."""
+    from slam_tpu_torch.config import SolverConfig
+    from slam_tpu_torch.io import g2o
+    from slam_tpu_torch.parallel import mesh, schur_dist
+    from slam_tpu_torch.solver.partition import graph_partition
+    from slam_tpu_torch.tools import dist_check
+
+    res = dist_check.run(device, DIST_SCHUR_RANKS, DIST_SCHUR_ITERS,
+                         "float32")
+    out = {}
+    for name, phase in (("contiguous", "dist_schur"),
+                        ("spectral", "dist_schur_spectral")):
+        r = res[name]
+        log("dist_schur", partition=name, ranks=DIST_SCHUR_RANKS,
+            backend=r["backend"], ni=r["ni"], ns=r["ns"], ek=r["ek"],
+            cost0=r["cost0"], cost=r["cost"],
+            single_process_cost0=res["single_process"]["cost0"],
+            single_process_cost=res["single_process"]["cost"],
+            ranks_bitwise_equal=r["ranks_bitwise_equal"],
+            wall_per_iter_s=r["wall_per_iter_s"],
+            separator_bytes_per_iter=r["separator_bytes_per_iter"],
+            reduced_bytes_per_iter=r["reduced_bytes_per_iter"],
+            collectives_per_iter=r["collectives_per_iter"],
+            collective_share=r["collective_share"],
+            launches_per_iter_rank0=json.dumps(
+                {k: n / DIST_SCHUR_ITERS
+                 for k, n in r["launches_rank0"].items()}),
+            card=json.dumps(smi))
+    if not res["ok"]:
+        raise AssertionError(
+            f"dist_schur: init_ok {res['init_ok']} converged "
+            f"{res['converged']} ranks_agree {res['ranks_agree']}")
+    log("dist_schur", separator_reduction=res["separator_reduction"],
+        single_process_wall_s=res["single_process"]["wall_s"],
+        launch_s=round(res["launch_s"], 2),
+        launch=json.dumps(mesh.LAST_LAUNCH),
+        setup_s=json.dumps([res[k]["setup_s"]
+                            for k in ("contiguous", "spectral")]))
+
+    base = g2o.load_g2o(g2o.find_dataset("CSAIL"))
+    graphs = [base.add_random_outliers(50, seed=s).canonical_order()
+              for s in BATCH_SEEDS]
+    cfg = SolverConfig(robust="dcs", linear_solver="schur",
+                       dtype="float64")
+    nb4 = graph_partition(graphs[0].edges_ij, graphs[0].num_nodes, 4)
+    # One launch: the batch, each replica row's seed alone on its 2-rank
+    # block group (its own unpadded problem), and the first seed on all
+    # 4 ranks, contiguous and spectral.
+    res2 = mesh.launch(4, mesh.run_jobs, [
+        (schur_dist.batched_schur_lm_job, (graphs, 2, cfg, BATCH_ITERS)),
+        (schur_dist.replica_rows_job, (graphs, 2, cfg, BATCH_ITERS)),
+        (schur_dist.schur_lm_job, (graphs[0], 4, cfg, BATCH_ITERS)),
+        (schur_dist.schur_lm_job, (graphs[0], 4, cfg, BATCH_ITERS, nb4))],
+        device=device, all_ranks=True)
+    log("dist_schur", batch_launch=json.dumps(mesh.LAST_LAUNCH))
+    batch = [r[0] for r in res2]
+    b, a = batch[0], res2[0][1]
+    for j in range(4):
+        if not mesh.bitwise_equal([r[j]["poses"] for r in res2]):
+            raise AssertionError(f"dist_schur f64 job {j}: ranks' poses "
+                                 "differ")
+
+    def held(what, got, ref):
+        errs = {"cost0": abs(got["cost0"] - ref["cost0"]) / ref["cost0"],
+                "cost": abs(got["cost"] - ref["cost"]) / ref["cost"],
+                "poses": float(np.abs(got["poses"] - ref["poses"]).max())}
+        log("dist_schur", float64=what, cost=got["cost"],
+            single_process_cost=ref["cost"], errs=json.dumps(errs),
+            tol=json.dumps(DIST_SCHUR_F64_TOL))
+        bad = {k: v for k, v in errs.items()
+               if not v <= DIST_SCHUR_F64_TOL[k]}
+        if bad:
+            raise AssertionError(f"dist_schur {what}: {bad} above "
+                                 f"{DIST_SCHUR_F64_TOL}")
+
+    for i, seed in enumerate(BATCH_SEEDS):
+        ref = dist_check.single_process(graphs[i], 2, cfg, BATCH_ITERS,
+                                        device)
+        for what, r in (("alone2", a), ("batch2x2", b)):
+            held(f"{what}_seed{seed}",
+                 {k: float(r[k][i]) for k in ("cost0", "cost")}
+                 | {"poses": r["poses"][i]}, ref)
+    ref4 = dist_check.single_process(graphs[0], 4, cfg, BATCH_ITERS, device)
+    for j, what in ((2, "contiguous4"), (3, "spectral4")):
+        held(f"{what}_seed{BATCH_SEEDS[0]}", res2[0][j], ref4)
+    for i, seed in enumerate(BATCH_SEEDS):
+        rel = abs(float(b["cost"][i]) - float(a["cost"][i])) \
+            / abs(float(a["cost"][i]))
+        log("dist_schur", batch="2x2", seed=seed, cost0=float(b["cost0"][i]),
+            cost=float(b["cost"][i]), alone_cost=float(a["cost"][i]),
+            rel_diff=rel, gate=BATCH_REL,
+            poses_max_abs_diff=float(np.abs(b["poses"][i]
+                                            - a["poses"][i]).max()))
+        if not rel <= BATCH_REL:
+            raise AssertionError(f"dist_schur batch seed {seed}: rel {rel}")
+    for name, phase in (("contiguous", "dist_schur"),
+                        ("spectral", "dist_schur_spectral")):
+        out[phase] = res[name]["launches_rank0"]
+        require_launches(phase, out[phase])
+    return out
+
+
+def phase_profile(smi: str) -> dict:
+    """Phase 11e: ``INTEL 50 1 --seed 42 --profile DIR`` in a child
+    process; the trace holds one event for each of the main path's
+    kernel launches (named by its symbol), and the run's final cost and
+    optimised poses equal the main path's to the bit.  Returns the kernel
+    events of each symbol in the trace."""
+    import glob
+    import subprocess
+
+    from slam_tpu_torch.io import g2o
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_dir, save = os.path.join(tmp, "trace"), os.path.join(tmp, "s")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "slam_tpu_torch.cli", "INTEL", "50", "1",
+             "--seed", "42", "--profile", trace_dir, "--save-path", save],
+            cwd=REPO, capture_output=True, text=True, timeout=900,
+            env=dict(os.environ, PYTHONPATH=REPO))
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"profile: rc {proc.returncode}\n"
+                                 f"{proc.stderr[-3000:]}")
+        files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+        if len(files) != 1:
+            raise AssertionError(f"profile: traces {files}")
+        size = os.path.getsize(files[0])
+        counts = dict.fromkeys(PROFILE_SYMBOLS, 0)
+        tail = b""
+        with open(files[0], "rb") as f:
+            while chunk := f.read(1 << 24):
+                text = tail + chunk
+                for k, sym in PROFILE_SYMBOLS.items():
+                    counts[k] += text.count(sym.encode())
+                # Keep a tail shorter than any symbol, so none is counted
+                # twice and none is cut.
+                tail = text[-(min(map(len, PROFILE_SYMBOLS.values())) - 1):]
+        solve = log_record(os.path.join(save, "method1.log"), "solve")
+        poses = g2o.load_nodes(os.path.join(save, "opt_nodes.txt"))
+    ate = golden_ate("profile", poses)
+    log("profile", wall_s=round(wall, 3), trace_bytes=size,
+        kernel_events=json.dumps(counts), final_cost=solve["final_cost"],
+        main_path_final_cost=MAIN_RUN["solve"]["final_cost"],
+        ate_vs_golden_m=ate, main_path_ate_m=MAIN_RUN["ate"],
+        card=json.dumps(smi))
+    if solve["final_cost"] != MAIN_RUN["solve"]["final_cost"] \
+            or not np.array_equal(poses, MAIN_RUN["poses"]) \
+            or ate != MAIN_RUN["ate"]:
+        raise AssertionError("profile: the profiled run differs from the "
+                             "main path's")
+    # One kernel event per launch: the trace holds the main path's.
+    if counts != MAIN_RUN["launches"]:
+        raise AssertionError(f"profile: kernel events {counts}, main path "
+                             f"launches {MAIN_RUN['launches']}")
+    require_launches("profile", counts)
+    return counts
+
+
+def require_no_children() -> None:
+    """Stop the helpers that launching ranks started, then fail if a
+    process this one started is still there (running or unreaped)."""
+    from slam_tpu_torch.parallel import mesh
+
+    mesh.shutdown()
+    me, left = str(os.getpid()), []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:  # ended meanwhile
+            continue
+        # After the command's closing parenthesis: state, then parent.
+        if stat.rsplit(")", 1)[1].split()[1] == me:
+            left.append(f"{pid}: {cmd[:200]}")
+    log("processes", children_left=len(left))
+    if left:
+        raise AssertionError(f"processes left running: {left}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -1682,6 +2283,11 @@ def main() -> int:
         ("fused_managers", lambda: phase_fused_managers(smi)),
         ("fused_vs_host", lambda: phase_fused_vs_host(smi)),
         ("fused_m3500", lambda: phase_fused_m3500(smi)),
+        ("woodbury_path", lambda: phase_woodbury(device, smi)),
+        ("sweep", lambda: phase_sweep(device, smi)),
+        ("dist_edge", lambda: phase_dist_edge(device, smi)),
+        ("dist_schur", lambda: phase_dist_schur(device, smi)),
+        ("profile", lambda: phase_profile(smi)),
         ("kernel_times", lambda: phase_kernel_times(timings)),
     ]
     out = {}
@@ -1689,6 +2295,7 @@ def main() -> int:
         t0 = time.perf_counter()
         out[name] = fn()
         log(name, phase_s=round(time.perf_counter() - t0, 3))
+    require_no_children()
     log("total", seconds=round(time.perf_counter() - t_all, 3))
 
     launches = {"main_path": out["main_path"],
@@ -1699,7 +2306,9 @@ def main() -> int:
                 "se3_path": out["se3_path"], "se3_ab": out["se3_ab"],
                 "golden": out["golden"], **out["managers"],
                 **{p: out[p] for p in ("fused_managers", "fused_vs_host",
-                                       "fused_m3500")}}
+                                       "fused_m3500", "woodbury_path",
+                                       "sweep", "profile")},
+                **out["dist_edge"], **out["dist_schur"]}
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[path][k], **out["kernels"][k],

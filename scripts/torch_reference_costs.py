@@ -11,6 +11,7 @@ Runs the JAX package on the CPU in float64 on the problems that
   50 iterations; joint switchable constraints (method 2) on the Schur and
   the dense solver, 50; their variable projection on the Schur solver, 50;
   plain DCS and joint SC on PCG with the tridiagonal preconditioner, 10;
+  plain DCS on the chain + low-rank Woodbury solver, 50;
 - the command-line run of method 2, ``INTEL 50 2 --seed 42``, and of
   ``--sc-varpro``: final cost, steps, and the count of loop edges whose
   switch in ``switches.txt`` is below 0.5;
@@ -23,7 +24,10 @@ Runs the JAX package on the CPU in float64 on the problems that
 - the command-line run ``sphere2500 50 1 --seed 0``: final cost, steps,
   and the ATE against ``results/golden/sphere2500_50out_seed0.npy``.
 
-    JAX_PLATFORMS=cpu python scripts/torch_reference_costs.py
+    JAX_PLATFORMS=cpu python scripts/torch_reference_costs.py [KEY ...]
+
+With keys, only those entries are computed, and the others in the file
+are kept.
 """
 
 from __future__ import annotations
@@ -66,6 +70,7 @@ FIXED = [
     ("intel50_sc_varpro_schur_lm_fixed_iters", "sc_varpro", "schur", 50),
     ("intel50_dcs_pcg_lm_fixed_iters", "dcs", "pcg", 10),
     ("intel50_sc_pcg_lm_fixed_iters", "sc", "pcg", 10),
+    ("intel50_plain_dcs_woodbury_lm_fixed_iters", "dcs", "woodbury", 50),
 ]
 
 
@@ -97,6 +102,13 @@ def fixed_iters(robust: str, solver_name: str, iters: int) -> dict:
                 f"{solver.pcg_max_iters} iterations)")
     elif solver_name == "dense":
         what = "dense joint Cholesky" if robust == "sc" else "dense Cholesky"
+    elif solver_name == "woodbury":
+        from slam_tpu.solver.woodbury import build_woodbury_ops
+
+        part = build_woodbury_ops(np.asarray(edges.ij), canon.num_nodes,
+                                  dtype=jnp.float64)
+        what = (f"chain + low-rank Woodbury ({part.num_lowrank} low-rank "
+                "edges)")
     res = lm_fixed_iters(
         jnp.asarray(canon.poses), jnp.ones((edges.num_edges,)), edges,
         anchor_first_node(canon.num_nodes, dtype=jnp.float64), solver,
@@ -217,26 +229,34 @@ def sphere_cli() -> dict:
     }
 
 
-def main() -> int:
+def main(keys=()) -> int:
+    path = REPO / "slam_tpu_torch" / "data" / "reference_costs.json"
     out = {"command": "JAX_PLATFORMS=cpu python "
                       "scripts/torch_reference_costs.py"}
-    for key, robust, solver, iters in FIXED:
-        out[key] = fixed_iters(robust, solver, iters)
+    if keys:
+        out = json.loads(path.read_text())
+    jobs = [(key, lambda r=robust, s=solver, i=iters: fixed_iters(r, s, i))
+            for key, robust, solver, iters in FIXED]
+    jobs += [(f"intel50_{robust}_cli", lambda r=robust: cli_run(r))
+             for robust in ("sc", "sc_varpro")]
+    jobs += [(key, lambda kw=kw: sphere_recipe(**kw)) for key, kw in (
+        ("sphere2500_dcs_schur_native", {}),
+        ("sphere2500_dcs_schur_blocked", {"blocked": True}),
+        ("sphere2500_dcs_schur_bench_partition_order",
+         {"blocked": False, "bench_order": True}))]
+    jobs.append(("sphere2500_50_1_cli", sphere_cli))
+    unknown = set(keys) - {k for k, _ in jobs}
+    if unknown:
+        raise SystemExit(f"unknown keys {sorted(unknown)}")
+    for key, job in jobs:
+        if keys and key not in keys:
+            continue
+        out[key] = job()
         print(key, out[key]["final_cost"], flush=True)
-    for robust in ("sc", "sc_varpro"):
-        out[f"intel50_{robust}_cli"] = cli_run(robust)
-    for key, kw in (("sphere2500_dcs_schur_native", {}),
-                    ("sphere2500_dcs_schur_blocked", {"blocked": True}),
-                    ("sphere2500_dcs_schur_bench_partition_order",
-                     {"blocked": False, "bench_order": True})):
-        out[key] = sphere_recipe(**kw)
-        print(key, out[key]["final_cost"], flush=True)
-    out["sphere2500_50_1_cli"] = sphere_cli()
-    path = REPO / "slam_tpu_torch" / "data" / "reference_costs.json"
     path.write_text(json.dumps(out, indent=2) + "\n")
     print(json.dumps(out, indent=2))
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(tuple(sys.argv[1:])))

@@ -8,6 +8,9 @@ Same positional interface as ``slam_tpu.cli`` (the reference's
 Methods 3 (layering) and 4 (MCTS) run the fused engines (the decision
 loop on the device) on CUDA and the host-driven engines on the CPU, unless
 ``--fused`` says otherwise; ``--checkpoint`` makes any method resumable.
+``--sweep`` runs the outlier grid of ``eval/harness.py`` instead of one
+solve, and ``--profile DIR`` writes a ``torch.profiler`` trace of the
+solve into DIR.
 The device is CUDA unless ``--device cpu`` is given; the dtype is float32
 on CUDA and float64 on CPU unless ``--dtype`` says otherwise.
 """
@@ -20,16 +23,6 @@ import sys
 from slam_tpu_torch.config import LayeringConfig, MctsConfig, RunConfig, \
     SolverConfig
 
-# Flags of the JAX CLI whose code paths are not ported yet, and where the
-# ROADMAP queues them.
-_NOT_PORTED = {
-    "sweep": "A17 (sweeps)",
-    "profile": "A17 (profiling)",
-}
-# Linear solvers of the JAX CLI that are not ported yet.
-_SOLVERS_NOT_PORTED = {"woodbury": "A16"}
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="slam_tpu_torch",
@@ -41,6 +34,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="number of bogus loops to inject")
     p.add_argument("method", type=int, choices=[0, 1, 2, 3, 4],
                    help="0=baseline 1=DCS 2=SC 3=layering 4=MCTS")
+    p.add_argument("--sweep", action="store_true",
+                   help="run the outlier sweep grid (methods x counts) "
+                        "instead of a single solve; num_outliers becomes the "
+                        "maximum count and method the maximum method id")
+    p.add_argument("--sweep-seeds", type=int, default=1,
+                   help="number of outlier seeds per sweep cell")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (default) or cpu (the plain kernel versions)")
     p.add_argument("--save-path", default="save")
@@ -68,7 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "dense", "pcg", "schur", "woodbury"],
                    help="auto: dense up to 512 nodes, schur above; pcg: "
                         "CG with the cyclic-reduction chain "
-                        "preconditioner (woodbury is not ported yet)")
+                        "preconditioner; woodbury: the exact chain + "
+                        "low-rank solver for closure-sparse graphs")
     p.add_argument("--dtype", default=None,
                    choices=[None, "float32", "float64"],
                    help="default: float32 on CUDA, float64 on CPU")
@@ -76,13 +76,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write trajectory PNG")
     p.add_argument("--eval-against", default=None,
                    help="nodes file to compute ATE against")
-    p.add_argument("--sweep", action="store_true", help="not ported yet")
     p.add_argument("--checkpoint", default=None, metavar="FILE",
                    help="resumable solves: methods 0-2 persist chunked LM "
                         "state, methods 3/4 persist the fused engine's "
                         "state at chunk boundaries (utils/checkpoint.py); "
                         "re-running with the same FILE resumes")
-    p.add_argument("--profile", default=None, help="not ported yet")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the solve into DIR "
+                        "(TensorBoard-loadable)")
     p.add_argument("--report-stages", action="store_true",
                    help="add per-stage (linearize / linear solve / "
                         "retract+cost) times to the solve report")
@@ -162,30 +163,34 @@ def _fused_overrides(args) -> dict:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet (ROADMAP "
-                f"{item})")
-    if args.linear_solver in _SOLVERS_NOT_PORTED:
-        raise NotImplementedError(
-            f"--linear-solver {args.linear_solver} is not ported yet "
-            f"(ROADMAP {_SOLVERS_NOT_PORTED[args.linear_solver]})")
     cfg = config_from_args(args)
+    if args.sweep:
+        return _run_sweep(cfg, args)
 
-    if cfg.method == 3:
-        from slam_tpu_torch.methods.layering import run_from_config as run3
-        out = run3(cfg, device=args.device, fused=args.fused,
-                   checkpoint=args.checkpoint)
-    elif cfg.method == 4:
-        from slam_tpu_torch.methods.mcts import run_from_config as run4
-        out = run4(cfg, device=args.device, fused=args.fused,
-                   checkpoint=args.checkpoint)
-    elif args.checkpoint:
-        out = _run_checkpointed(cfg, args.checkpoint, device=args.device)
+    import contextlib
+
+    if args.profile:
+        from slam_tpu_torch.utils.profiling import trace
+        profile_cm = trace(args.profile)
     else:
-        from slam_tpu_torch.methods.global_solve import run_from_config
-        out = run_from_config(cfg, device=args.device)
+        profile_cm = contextlib.nullcontext()
+
+    with profile_cm:
+        if cfg.method == 3:
+            from slam_tpu_torch.methods.layering import run_from_config \
+                as run3
+            out = run3(cfg, device=args.device, fused=args.fused,
+                       checkpoint=args.checkpoint)
+        elif cfg.method == 4:
+            from slam_tpu_torch.methods.mcts import run_from_config as run4
+            out = run4(cfg, device=args.device, fused=args.fused,
+                       checkpoint=args.checkpoint)
+        elif args.checkpoint:
+            out = _run_checkpointed(cfg, args.checkpoint,
+                                    device=args.device)
+        else:
+            from slam_tpu_torch.methods.global_solve import run_from_config
+            out = run_from_config(cfg, device=args.device)
 
     if args.eval_against:
         from slam_tpu_torch.eval import metrics
@@ -212,12 +217,39 @@ def main(argv=None) -> int:
     return 0
 
 
+def _run_sweep(cfg: RunConfig, args) -> int:
+    """The outlier sweep grid: counts 0, 10, 50, 100 up to
+    ``num_outliers`` (and it), methods 0 and 1 (and 2 when ``method`` is
+    2 or more), ``--sweep-seeds`` seeds; the table is printed and written
+    with ``sweep.json`` into the save path (the JAX CLI's rule)."""
+    import os
+
+    from slam_tpu_torch.eval import harness
+    from slam_tpu_torch.utils.logging import RunLogger
+
+    os.makedirs(cfg.save_path, exist_ok=True)
+    counts = sorted({0, *(c for c in (10, 50, 100)
+                          if c <= cfg.num_outliers), cfg.num_outliers})
+    methods = [m for m in (0, 1, 2) if m <= max(cfg.method, 1)]
+    logger = RunLogger(os.path.join(cfg.save_path, "sweep.log"))
+    try:
+        cells = harness.run_sweep(
+            cfg.dataset, methods=methods, outlier_counts=counts,
+            seeds=list(range(args.sweep_seeds)), solver=cfg.solver,
+            reference_nodes=args.eval_against, save_path=cfg.save_path,
+            logger=logger, device=args.device)
+        print(harness.format_table(cells))
+    finally:
+        logger.close()
+    return 0
+
+
 def _run_checkpointed(cfg: RunConfig, ckpt_path: str, device="cuda"):
     """Methods 0-2 with chunked checkpoint/resume (``utils/checkpoint.py``):
     the same ``init_*`` and ``opt_*`` files as the global solve and a
     ``[solve] checkpointed=True`` record.  The solver is the configured
-    one, with ``auto``/``schur`` taken as dense up to 2048 nodes and PCG
-    above, so that no partition is needed."""
+    one, with ``auto``/``schur``/``woodbury`` taken as dense up to 2048
+    nodes and PCG above, so that no partition is needed."""
     import os
 
     import torch
@@ -246,7 +278,7 @@ def _run_checkpointed(cfg: RunConfig, ckpt_path: str, device="cuda"):
                            graph)
 
         scfg = solver_config_for_method(cfg.method, cfg.solver)
-        if scfg.linear_solver in ("auto", "schur"):
+        if scfg.linear_solver in ("auto", "schur", "woodbury"):
             scfg = scfg.replace(
                 linear_solver="dense" if graph.num_nodes <= 2048 else "pcg")
         dtype = getattr(torch, scfg.dtype)

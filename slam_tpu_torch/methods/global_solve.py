@@ -75,7 +75,7 @@ class Problem(NamedTuple):
     free: FreeMask
     poses0: torch.Tensor
     switches0: torch.Tensor
-    partition: object  # SchurPartition (schur), dense plan, None (pcg)
+    partition: object  # SchurPartition, WoodburyOps, dense plan, None (pcg)
 
 
 def setup_problem(
@@ -109,7 +109,13 @@ def setup_problem(
     switches0 = torch.ones((edges.num_edges,), dtype=dtype, device=dev)
 
     partition = None  # pcg needs no plan
-    if scfg.linear_solver == "schur":
+    if scfg.linear_solver == "woodbury":
+        from slam_tpu_torch.solver.woodbury import build_woodbury_ops
+
+        partition = build_woodbury_ops(edges.ij.cpu().numpy(),
+                                       canon.num_nodes, device=dev)
+        logger.log("woodbury", lowrank_edges=partition.num_lowrank)
+    elif scfg.linear_solver == "schur":
         from slam_tpu_torch.solver.schur import build_partition, \
             choose_partition
 

@@ -60,8 +60,9 @@ def _gnc_phi(cfg: SolverConfig, it: int) -> float:
 
 def linear_plan(cfg: SolverConfig, edges: EdgeSet, partition=None):
     """What the configured linear solver needs besides the system: the
-    Schur partition; the dense assembly plan (pose-only, or the joint one
-    for ``robust="sc"``), built when not given; nothing for PCG."""
+    Schur partition or the Woodbury operators; the dense assembly plan
+    (pose-only, or the joint one for ``robust="sc"``), built when not
+    given; nothing for PCG."""
     if cfg.linear_solver == "dense":
         joint = cfg.robust == "sc"
         if partition is None:
@@ -77,16 +78,18 @@ def linear_plan(cfg: SolverConfig, edges: EdgeSet, partition=None):
     if cfg.linear_solver == "pcg":
         return None
     if cfg.linear_solver == "woodbury":
-        raise NotImplementedError(
-            "linear solver 'woodbury' is not ported yet (ROADMAP A16)")
+        if partition is None:
+            raise ValueError("linear_solver='woodbury' requires WoodburyOps "
+                             "(pass as partition)")
+        return partition
     raise ValueError(f"unknown linear solver {cfg.linear_solver!r}")
 
 
 def _solve_linear(system, edges, lam, cfg: SolverConfig,
                   plan) -> tuple[linear.Update, int]:
     """The step and its inner (CG) iterations, 0 for the direct solvers.
-    Joint SC on the Schur solver eliminates the switches first and
-    recovers them by substitution."""
+    Joint SC on the Schur and Woodbury solvers eliminates the switches
+    first and recovers them by substitution."""
     if cfg.linear_solver == "dense":
         return linear.dense_solve(system, edges, lam, plan), 0
     if cfg.linear_solver == "pcg":
@@ -94,19 +97,24 @@ def _solve_linear(system, edges, lam, cfg: SolverConfig,
                                 max_iters=cfg.pcg_max_iters,
                                 rtol=cfg.pcg_rtol,
                                 preconditioner=cfg.pcg_preconditioner)
-    from slam_tpu_torch.solver import schur
+    from slam_tpu_torch.solver import schur, woodbury
 
     backsub = None
     if cfg.robust == "sc":
         # As in the JAX package, schur_solve assembles from the Jacobians
         # and reads only the diagonal of the reduced Hdiag (its damping and
         # scale): the elimination's couplings do not reach the step
-        # (ROADMAP C, reference-side fault 8).
+        # (ROADMAP C, reference-side fault 8).  woodbury_solve keeps the
+        # chain edges' couplings and the reduced diagonal, as there.
         system, backsub = linear.eliminate_switches(system, edges, lam)
-    dx = schur.schur_solve(system, edges, plan, lam,
-                           blocked=cfg.schur_blocked, panel=cfg.schur_panel,
-                           panel_inner=cfg.schur_panel_inner,
-                           pallas_micro=cfg.schur_pallas_micro)
+    if cfg.linear_solver == "woodbury":
+        dx = woodbury.woodbury_solve(system, edges, plan, lam)
+    else:
+        dx = schur.schur_solve(system, edges, plan, lam,
+                               blocked=cfg.schur_blocked,
+                               panel=cfg.schur_panel,
+                               panel_inner=cfg.schur_panel_inner,
+                               pallas_micro=cfg.schur_pallas_micro)
     if backsub is not None:
         dx = dx._replace(switches=backsub(dx.poses))
     return dx, 0

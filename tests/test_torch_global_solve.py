@@ -104,15 +104,6 @@ def test_cli_runs_without_jax(circle_outliers, tmp_path):
         assert (save / name).is_file(), name
 
 
-@pytest.mark.parametrize("argv", [
-    ["INTEL", "0", "1", "--linear-solver", "woodbury"],
-    ["INTEL", "0", "1", "--sweep"], ["INTEL", "0", "1", "--profile", "x"],
-])
-def test_cli_names_unported_paths(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(argv)
-
-
 # ---------------------------------------------------------------------------
 # Method 2 (switchable constraints)
 # ---------------------------------------------------------------------------
@@ -233,7 +224,8 @@ def test_report_stages(circle_outliers, capsys):
 
 def test_cli_method2_runs(circle_outliers, tmp_path, capsys):
     """Method 2, ``--sc-varpro``, ``--linear-solver pcg`` and
-    ``--report-stages`` run through the CLI; woodbury is refused."""
+    ``--report-stages`` run through the CLI; and method 2 on the Woodbury
+    solver matches the JAX package's run record for record."""
     graph, _ = circle_outliers
     path = str(tmp_path / "circle.g2o")
     g2o.write_g2o(path, graph)
@@ -244,9 +236,13 @@ def test_cli_method2_runs(circle_outliers, tmp_path, capsys):
                          str(save), "--max-iterations", "5", *extra]) == 0
         assert (save / "switches.txt").is_file()
     assert "retract_cost" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A16"):
-        cli.main([path, "5", "2", "--device", "cpu", "--linear-solver",
-                  "woodbury", "--save-path", str(tmp_path / "w")])
+    save = tmp_path / "w"
+    assert cli.main([path, "5", "2", "--device", "cpu", "--linear-solver",
+                     "woodbury", "--save-path", str(save),
+                     "--max-iterations", "5"]) == 0
+    assert (save / "switches.txt").is_file()
+    records = compare_runs(graph, _method2_cfg("none", "woodbury"))
+    assert any(tag == "woodbury" for tag, _ in records)
 
 
 def _run_smoke(cwd):

@@ -132,11 +132,25 @@ def test_unported_solvers_raise(dense_case):
     E = c["je"].num_edges
     args = (torch.as_tensor(c["g"].poses), torch.ones(E, dtype=torch.float64),
             c["te"], c["tf"])
+    from slam_tpu.solver.woodbury import build_woodbury_ops as jbuild
+    from slam_tpu_torch.solver.woodbury import build_woodbury_ops
+
+    ij, n = np.asarray(c["je"].ij), c["g"].num_nodes  # the padded edges
     for robust in ("sc", "dcs"):
+        # Woodbury needs its operators, as in the JAX package.
         cfg = SolverConfig(robust=robust, linear_solver="woodbury",
                            dtype="float64")
-        with pytest.raises(NotImplementedError, match="A16"):
+        with pytest.raises(ValueError, match="WoodburyOps"):
             tlm.lm_solve(*args, convert.config_from_jax(cfg))
+    # With them it runs and matches the JAX solve (joint SC on Woodbury:
+    # tests/test_torch_woodbury.py).
+    j = jlm.lm_solve(jnp.asarray(c["g"].poses), jnp.ones(E), c["je"],
+                     c["jf"], cfg, partition=jbuild(ij, n, dtype=jnp.float64))
+    t = tlm.lm_solve(*args, convert.config_from_jax(cfg),
+                     partition=build_woodbury_ops(ij, n))
+    assert t.iterations == int(j.iterations)
+    np.testing.assert_allclose(t.poses.numpy(), np.asarray(j.poses), rtol=0,
+                               atol=1e-9)
     with pytest.raises(ValueError):
         tlm.lm_solve(*args, convert.config_from_jax(
             SolverConfig(robust="dcs", linear_solver="schur",
