@@ -36,13 +36,16 @@ the script exits non-zero and prints no result line):
      ``MANAGER_KERNEL_CANDIDATES`` closures): a candidate evaluation's
      edge mask with every node but node 0 free, and a windowed commit;
    - ``micro_chol_inv`` on SPD batches of (16, 128, 128) and
-     (32, 128, 128), of 48 and 80 such panels (where the kernel takes 2
-     and 1 CTAs a matrix), and on real panels: the first and the trailing
+     (32, 128, 128), of 48, 80 and 128 such panels (where the kernel
+     takes 2 and 1 CTAs a matrix; 128 is the seed batch's, 8 seeds x 16
+     interiors), and on real panels: the first and the trailing
      diagonal panel of the equilibrated Schur interiors of INTEL+50,
      M10000+50 and the sphere2500 recipe (D = 6, D ni = 3450) at their
-     initial poses, lambda = 1e-4; L bitwise equal to
-     the plain version's, the inverse within TOL (SPD) or RESID_FACTOR
-     (real panels);
+     initial poses, lambda = 1e-4; ``micro_chol_inv_folded`` on the
+     (8, 16, 128, 128) view of the 128 SPD panels and on the seed batch's
+     real first and trailing panels folded over its 8 seeds; L bitwise
+     equal to the plain version's of the flat batch, the inverse within
+     TOL (SPD) or RESID_FACTOR (real panels);
 3. the main path through the CLI, ``INTEL 50 1 --seed 42`` (auto init,
    auto solver = Schur, rescue on, float32): the output files, the launch
    count of every kernel during that run, and the ATE against the golden
@@ -60,6 +63,26 @@ the script exits non-zero and prints no result line):
    M10000+50, cost <= 0.8 x initial; (d) LM iterations/s of (b) and (c)
    under the native, blocked-plain-panel and blocked-kernel
    configurations, in turns; native INTEL within ``LAUNCH_LIMITS``;
+6e. ``seed_batch``: the per-seed batch of ``bench.py``'s INTEL row
+   (``tools/problems.intel50_seed_batch``: INTEL+50 of seeds 0-7, plain
+   DCS, Schur with 16 index blocks padded to the seeds' maxima, float32),
+   ``BATCH_ITERS`` (50) iterations of ``solver/batch.lm_fixed_iters_batch``
+   under the native, blocked-plain-panel and blocked-kernel
+   factorisations, and each seed alone through ``lm_fixed_iters`` on its
+   share of the batch's shapes, in turns (batch, seeds, seeds, batch):
+   every seed of the batch meets ``bench.py``'s gate (initial cost > 2,
+   cost < 0.6 x initial) and lands within ``SEED_BATCH_F32_RTOL`` of its
+   float64 batch cost, and the batch launches each kernel as often as
+   one seed's run; each seed of the batch is held to its run alone in
+   float32 after one iteration (all three factorisations) and in float64
+   after all of them (native, blocked-plain), at ``SEED_BATCH_*``; the
+   float32 differences from the runs alone after 50 iterations and
+   whether they are equal to the bit are printed, not gated; with the
+   batch's wall, LM iterations/s as ``bench.py`` reckons them (B x
+   iterations / wall), the eight seeds' total wall, the peak of
+   ``torch.cuda.max_memory_allocated`` above what is held before, and
+   (with the kernels' times, under torch.profiler) device ms and busy
+   share per batched iteration;
 7. method 2 (switchable constraints), float32:
    (a) ``method2_path``: ``INTEL 50 2 --seed 42`` through the CLI (auto
    solver = Schur with the switches eliminated), and again with
@@ -163,7 +186,8 @@ the script exits non-zero and prints no result line):
    its process slower (``[kernels]`` lines, float32; and
    ``micro_chol_inv`` in float64): per launch and per plan of the
    recorded iterations (``micro_chol_inv`` on the real (16, 128, 128)
-   INTEL and (32, 128, 128) M10000 batches), and on the SPD batches:
+   INTEL and (32, 128, 128) M10000 batches), and on the SPD batches
+   (``micro_chol_inv_folded`` on (8, 16, 128, 128)):
    the kernel (``ms``: CUDA
    events around 50 back-to-back calls; ``device_ms``: its device events
    under torch.profiler; ``host_us``: host time per call with no sync),
@@ -346,6 +370,38 @@ PROFILE_SYMBOLS = {"gather_rows": "gather_rows_kernel",
                    "fused_linearize_se2": "linearize_se2_kernel",
                    "micro_chol_inv": "micro_chol_inv_kernel"}
 PANEL = 128               # schur_panel of the blocked path
+# [seed_batch]: its gate of bench.py (bench.py:161): every seed's cost0 >
+# 2 and cost < 0.6 x cost0, after tools/problems.BATCH_ITERS (bench.py's
+# LM_ITERS) iterations.
+SEED_BATCH_COST0_MIN = 2.0
+SEED_BATCH_COST_FRAC = 0.6
+# Batched iterations under torch.profiler for the device time.
+SEED_BATCH_PROFILE_ITERS = 10
+# Each seed of the batch against its run alone, measured on an NVIDIA
+# H100 80GB HBM3 at 700 W (PERF.md).  In float64 (native and
+# blocked-plain; the kernel takes float32 panels only), all the
+# iterations: up to 2.7e-12 in cost and 2.5e-10 m in poses.  In float32,
+# the first iteration of all three factorisations: up to 2.5e-6 in cost
+# and 4.5e-5 m in poses; the gates are about 4x that.
+SEED_BATCH_F64_RTOL = 1e-9
+SEED_BATCH_F64_POSE_ATOL = 1e-8
+SEED_BATCH_STEP_RTOL = 1e-5
+SEED_BATCH_STEP_POSE_ATOL = 2e-4
+# Each seed's float32 cost after all the iterations against its float64
+# batch cost (native), per factorisation: twice the largest |relative
+# difference| on the card over the float32 batch from the initial poses
+# and 16 copies perturbed by 1e-7 (python -m
+# slam_tpu_torch.tools.f32_spread --problem seed_batch --perturb 16; each
+# seed alone lands inside).  One seed's trajectory leaves for another
+# basin under a one-ulp move, so the spread is large.  The CPU's (--device
+# cpu) is smaller for native and blocked-plain; its blocked-kernel runs
+# the plain panel factor, another program (0.489).  The largest, card /
+# CPU, in the comment.
+SEED_BATCH_F32_RTOL = {
+    "native": 0.517,         # 0.2583 / 0.2158
+    "blocked_plain": 0.532,  # 0.2658 / 0.2078
+    "blocked_micro": 0.44,   # 0.2197 / (0.4889, plain panel factor)
+}
 KERNEL_INFO = {  # name: (source, TPU kernel it replaces, phase that runs it)
     "gather_rows": ("slam_tpu_torch/csrc/gather.cu",
                     "slam_tpu/ops/pallas_gather.py:56", "main_path"),
@@ -356,7 +412,13 @@ KERNEL_INFO = {  # name: (source, TPU kernel it replaces, phase that runs it)
                             "main_path"),
     "micro_chol_inv": ("slam_tpu_torch/csrc/chol.cu",
                        "slam_tpu/ops/pallas_chol.py:92", "blocked_path"),
+    "micro_chol_inv_folded": ("slam_tpu_torch/csrc/chol.cu",
+                              "slam_tpu/ops/pallas_chol.py:119",
+                              "seed_batch_blocked_micro"),
 }
+# The fold is a reshape in front of micro_chol_inv, whose wrapper counts
+# the launch: a kernel's count, where it is not its name's.
+KERNEL_COUNTER = {"micro_chol_inv_folded": "micro_chol_inv"}
 PHASE_KERNELS = {
     "main_path": ("gather_rows", "scatter_add_rows", "fused_linearize_se2"),
     "blocked_path": ("gather_rows", "scatter_add_rows",
@@ -371,6 +433,12 @@ PHASE_KERNELS = {
     "se3_path": ("gather_rows", "scatter_add_rows"),
     "se3_ab": ("gather_rows", "scatter_add_rows", "micro_chol_inv"),
     "golden": ("gather_rows", "scatter_add_rows", "fused_linearize_se2"),
+    "seed_batch_native": ("gather_rows", "scatter_add_rows",
+                          "fused_linearize_se2"),
+    "seed_batch_blocked_plain": ("gather_rows", "scatter_add_rows",
+                                 "fused_linearize_se2"),
+    "seed_batch_blocked_micro": ("gather_rows", "scatter_add_rows",
+                                 "fused_linearize_se2", "micro_chol_inv"),
     **{phase: ("gather_rows", "scatter_add_rows", "fused_linearize_se2")
        for phase in (*MANAGER_PHASES, "fused_managers", "fused_vs_host",
                      "fused_m3500", "woodbury_path", "sweep", "dist_edge",
@@ -454,28 +522,42 @@ def residuals(A, L, inv) -> tuple[float, float]:
     return r_fac, r_inv
 
 
-def check_chol(label: str, A, dtype_name: str, gate: str) -> float:
-    """Kernel vs plain on one batch; ``gate`` is "spd" (elementwise
-    tolerance) or "residual" (against the plain version's residuals).
-    Returns the max abs error of L and inv against the plain version."""
-    from slam_tpu_torch.ops.chol import micro_chol_inv, micro_chol_inv_plain
+def check_chol(label: str, A, dtype_name: str, gate: str,
+               lead: tuple = ()) -> float:
+    """Kernel vs plain on one batch ``A (M, p, p)``; ``gate`` is "spd"
+    (elementwise tolerance) or "residual" (against the plain version's
+    residuals).  With ``lead``, the kernel is ``micro_chol_inv_folded`` on
+    the ``(*lead, M / prod(lead), p, p)`` view, held to the plain version
+    of the flat batch.  Returns the max abs error of L and inv against the
+    plain version."""
+    from slam_tpu_torch.ops.chol import micro_chol_inv, \
+        micro_chol_inv_folded, micro_chol_inv_plain
 
-    Lk, ik = micro_chol_inv(A)
+    name = "micro_chol_inv_folded" if lead else "micro_chol_inv"
+    if lead:
+        view = A.view(*lead, -1, *A.shape[1:])
+        Lk, ik = micro_chol_inv_folded(view)
+        if Lk.shape != view.shape or ik.shape != view.shape:
+            raise AssertionError(f"{name} {label}: shapes {Lk.shape}, "
+                                 f"{ik.shape} for {view.shape}")
+        Lk, ik = Lk.reshape(A.shape), ik.reshape(A.shape)
+    else:
+        Lk, ik = micro_chol_inv(A)
     torch.cuda.synchronize()
     Lp, ip = micro_chol_inv_plain(A)
     p = A.shape[-1]
     if not torch.equal(Lk, Lp):
-        raise AssertionError(f"micro_chol_inv {label} {dtype_name}: L not "
+        raise AssertionError(f"{name} {label} {dtype_name}: L not "
                              "bitwise equal to the plain version's")
     upper = torch.triu(torch.ones(p, p, dtype=torch.bool, device=A.device),
                        1)
     if not (bool((Lk[:, upper] == 0).all()) and bool((ik[:, upper] == 0)
                                                       .all())):
-        raise AssertionError(f"micro_chol_inv {label} {dtype_name}: strict "
+        raise AssertionError(f"{name} {label} {dtype_name}: strict "
                              "upper triangle not exactly 0")
     (eL, sL), (ei, si) = max_err(Lk, Lp), max_err(ik, ip)
     rk, rp = residuals(A, Lk, ik), residuals(A, Lp, ip)
-    log("kernels", kernel="micro_chol_inv", shape=label, dtype=dtype_name,
+    log("kernels", kernel=name, shape=label, dtype=dtype_name,
         batch=json.dumps(list(A.shape)), err_L=eL, err_inv=ei,
         resid_fac_kernel=rk[0], resid_fac_plain=rp[0],
         resid_inv_kernel=rk[1], resid_inv_plain=rp[1])
@@ -483,7 +565,7 @@ def check_chol(label: str, A, dtype_name: str, gate: str) -> float:
         tol = TOL[A.dtype]
         if not (eL <= tol * sL and ei <= tol * si):
             raise AssertionError(
-                f"micro_chol_inv {label} {dtype_name}: err L {eL} (scale "
+                f"{name} {label} {dtype_name}: err L {eL} (scale "
                 f"{sL}), inv {ei} (scale {si}) above {tol} x scale")
     else:
         # A floor of a few units of roundoff keeps an exact-zero plain
@@ -494,7 +576,7 @@ def check_chol(label: str, A, dtype_name: str, gate: str) -> float:
                             ("inv L - I", rk[1], rp[1])):
             if not (np.isfinite(k) and k <= max(RESID_FACTOR * pl, floor)):
                 raise AssertionError(
-                    f"micro_chol_inv {label} {dtype_name}: residual {what} "
+                    f"{name} {label} {dtype_name}: residual {what} "
                     f"{k} > {RESID_FACTOR} x plain {pl}")
     return max(eL, ei)
 
@@ -747,27 +829,39 @@ def time_launches(label: str, calls, names, peaks, plain, summary):
     return rows, fns, report
 
 
-def time_chol(A, err: float, peaks, summary):
+def time_chol(A, err: float, peaks, summary, lead: tuple = ()):
     """Times of ``micro_chol_inv`` on one SPD batch against its plain
-    version and the library pair; with ``summary``, the result line's.
-    Returns ``(rows, fns, report)`` for :func:`phase_kernel_times`."""
-    from slam_tpu_torch.ops.chol import micro_chol_inv, micro_chol_inv_plain
+    version and the library pair; with ``lead``, of
+    ``micro_chol_inv_folded`` on the ``(*lead, M / prod(lead), p, p)``
+    view; with ``summary``, the result line's.  Returns ``(rows, fns,
+    report)`` for :func:`phase_kernel_times`."""
+    from slam_tpu_torch.ops.chol import micro_chol_inv, \
+        micro_chol_inv_folded, micro_chol_inv_plain
     from slam_tpu_torch.tools import kernel_times as kt
 
     m = A.shape[0]
+    name = "micro_chol_inv_folded" if lead else "micro_chol_inv"
+    if lead:
+        A4 = A.view(*lead, -1, *A.shape[1:])
+
+        def kernel():
+            return micro_chol_inv_folded(A4)
+    else:
+        def kernel():
+            return micro_chol_inv(A)
     nbytes, ops, library = kt.chol_work(A)
-    t = in_turns({"kernel": lambda: micro_chol_inv(A),
+    t = in_turns({"kernel": kernel,
                   "plain": lambda: micro_chol_inv_plain(A),
                   "library": library},
                  {"kernel": REPS, "plain": 3, "library": REPS})
     b_ms, b_by = kt.bound(peaks, A.dtype, nbytes, ops)
     row = dict(max_abs_err=err, ms=t["kernel"],
-               host_us=kt.host_us(lambda: micro_chol_inv(A), REPS),
+               host_us=kt.host_us(kernel, REPS),
                plain_ms=t["plain"], bound_ms=b_ms, bound_by=b_by,
                library_ms=t["library"])
 
     def report():
-        log("kernels", kernel="micro_chol_inv", shape=f"spd{m}",
+        log("kernels", kernel=name, shape=f"spd{m}",
             dtype=str(A.dtype).replace("torch.", ""), max_abs_err=err,
             ms=round(row["ms"], 5),
             device_ms=round(row["device_ms"], 5),
@@ -776,10 +870,10 @@ def time_chol(A, err: float, peaks, summary):
             library_ms=round(row["library_ms"], 5), bound_ms=round(b_ms, 6),
             bound_by=b_by)
         if summary is not None:
-            summary["micro_chol_inv"] = {
+            summary[name] = {
                 k: v for k, v in row.items() if k != "device_events"}
 
-    return [row], [lambda: micro_chol_inv(A)], report
+    return [row], [kernel], report
 
 
 def phase_kernel_times(timings: list) -> None:
@@ -951,8 +1045,9 @@ def phase_kernels(device, peaks, timings: list) -> dict:
 
         # SPD batches at the path's panel counts (16 INTEL, 32 M10000),
         # timed; and at larger batches, where the kernel takes 2 and 1
-        # CTAs a matrix (4 m and 2 m past the SM count).
-        for m in (16, 32, 48, 80):
+        # CTAs a matrix (4 m and 2 m past the SM count); 128 is the seed
+        # batch's folded shape (8 seeds x 16 interiors).
+        for m in (16, 32, 48, 80, 128):
             rng = np.random.default_rng(m)
             G = rng.normal(size=(m, PANEL, PANEL))
             A = torch.as_tensor(G @ G.transpose(0, 2, 1)
@@ -964,7 +1059,31 @@ def phase_kernels(device, peaks, timings: list) -> dict:
                     time_chol, A, err, peaks,
                     summary if m == 16 and dtype == torch.float32
                     else None))
+            elif m == 128 and dtype == torch.float32:
+                timings.append(functools.partial(
+                    time_chol, A, check_folded(device, A), peaks, summary,
+                    lead=(8,)))
     return summary
+
+
+def check_folded(device, A) -> float:
+    """``micro_chol_inv_folded`` held to the plain version of the flat
+    batch: on the (8, 16, 128, 128) view of the 128 SPD panels ``A``, and
+    on the seed batch's real first and trailing panels (8 seeds x 16
+    interiors, folded over the seeds).  Returns the largest error."""
+    from slam_tpu_torch.tools.problems import intel50_seed_batch
+
+    errs = [check_chol("spd128", A, "float32", "spd", lead=(8,))]
+    b = intel50_seed_batch(device, torch.float32).batch
+    panels = real_panels(b.edges, b.free, b.poses0.reshape(-1, 3),
+                         b.partition)
+    log("kernels", panels="seed-batch", dtype="float32", seeds=b.seeds,
+        blocks=b.partition.num_blocks, interior_dim=panels["n"],
+        padded=panels["n_pad"])
+    for which in ("first", "trailing"):
+        errs.append(check_chol(f"seed-batch-{which}", panels[which],
+                               "float32", "residual", lead=(b.seeds,)))
+    return max(errs)
 
 
 def run_cli_path(phase: str, run) -> tuple[dict, float, np.ndarray]:
@@ -1182,6 +1301,179 @@ def phase_blocked(device, smi: str) -> dict:
                 raise AssertionError(f"blocked M10000 cost {cost} > "
                                      f"{SCALE_COST_FRAC} x {cost0}")
     return path_counts
+
+
+def timed_batch(case, cfg, iters: int) -> tuple:
+    """(result, wall seconds, launch counts, costs, peak bytes) of
+    ``iters`` batched iterations in one call; the peak counts the bytes
+    allocated above those held when the run starts."""
+    from slam_tpu_torch import ops
+    from slam_tpu_torch.solver.batch import lm_fixed_iters_batch
+
+    b = case.batch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = lm_fixed_iters_batch(*b.args, cfg, iters, partition=b.partition)
+    costs = res.cost.tolist()  # synchronises
+    return (res, time.perf_counter() - t0, ops.launch_counts(), costs,
+            torch.cuda.max_memory_allocated() - held)
+
+
+def timed_alone(case, cfg, iters: int) -> tuple:
+    """(results, total wall seconds, each seed's launch counts, costs,
+    peak bytes as :func:`timed_batch` counts them) of each seed alone,
+    one after another."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    out, wall, counts = [], 0.0, []
+    for args, part in case.alone:
+        res, w, c, cost = timed_lm(args, cfg, iters, part)
+        out.append((res, cost))
+        wall += w
+        counts.append(c)
+    return (out, wall, counts, [c for _, c in out],
+            torch.cuda.max_memory_allocated() - held)
+
+
+def batch_device_ms(case, cfg, wall_ms: float) -> dict:
+    """Device ms and busy share per batched iteration: the kernels'
+    device events under torch.profiler over ``SEED_BATCH_PROFILE_ITERS``
+    iterations, against the unprofiled wall per iteration."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from slam_tpu_torch.solver.batch import lm_fixed_iters_batch
+    from slam_tpu_torch.tools.profile_lm import device_us
+
+    b, n = case.batch, SEED_BATCH_PROFILE_ITERS
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        lm_fixed_iters_batch(*b.args, cfg, n, partition=b.partition)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if device_us(e) > 0]
+    dev = sum(device_us(e) for e in events) / 1e3 / n
+    return {"device_ms_per_iter": dev, "busy_share": dev / wall_ms,
+            "device_launches_per_iter": sum(e.count for e in events) / n}
+
+
+def phase_seed_batch(device, smi: str, timings: list) -> dict:
+    """Phase 6e: the seed batch against each seed alone, under the three
+    factorisations; returns each configuration's batch launch counts.
+    Its device times are appended to ``timings`` (profiler last)."""
+    from slam_tpu_torch.solver.batch import lm_fixed_iters_batch
+    from slam_tpu_torch.solver.lm import lm_fixed_iters
+    from slam_tpu_torch.tools.problems import BATCH_BLOCKS, BATCH_ITERS, \
+        CONFIGS, intel50_seed_batch
+
+    t0 = time.perf_counter()
+    case = intel50_seed_batch(device, torch.float32)
+    case64 = intel50_seed_batch(device, torch.float64)
+    b, iters = case.batch, BATCH_ITERS
+    B = b.seeds
+    part = b.partition
+    log("seed_batch", seeds=B, nodes=b.poses0.shape[1],
+        edges_per_seed=b.switches0.shape[1], blocks=BATCH_BLOCKS,
+        pad_shapes=json.dumps(list(b.pad_shapes)),
+        interiors=part.num_blocks, interior_dim=part.ni_max * 3,
+        separator_dim=part.ns * 3, setup_s=round(time.perf_counter() - t0, 3))
+
+    # The batch against each seed alone: float32, one iteration, all three
+    # factorisations; float64, all the iterations, native and blocked-plain.
+    # The float64 native batch is the float32 batch's reference below.
+    checks = [(case, name, 1, SEED_BATCH_STEP_RTOL,
+               SEED_BATCH_STEP_POSE_ATOL) for name in CONFIGS]
+    checks += [(case64, name, iters, SEED_BATCH_F64_RTOL,
+                SEED_BATCH_F64_POSE_ATOL)
+               for name in ("native", "blocked_plain")]
+    for c, name, n, rtol, atol in checks:
+        cfg = c.cfg.replace(**CONFIGS[name])
+        res = lm_fixed_iters_batch(*c.batch.args, cfg, n,
+                                   partition=c.batch.partition)
+        if c is case64 and name == "native":
+            ref64 = res.cost.tolist()
+        rel, dp = [], []
+        for i, (args, p) in enumerate(c.alone):
+            r = lm_fixed_iters(*args, cfg, n, partition=p)
+            rel.append(abs(float(res.cost[i]) - float(r.cost))
+                       / abs(float(r.cost)))
+            dp.append(float((res.poses[i] - r.poses).abs().max()))
+        dtype = str(c.batch.poses0.dtype).replace("torch.", "")
+        log("seed_batch", held=name, dtype=dtype, iters=n,
+            rel_diff=json.dumps(rel), pose_diff_m=json.dumps(dp),
+            gate_rel=rtol, gate_pose_m=atol)
+        if not (max(rel) <= rtol and max(dp) <= atol):
+            raise AssertionError(f"seed_batch {name} {dtype} {n} "
+                                 f"iterations: batch vs alone rel "
+                                 f"{max(rel)}, poses {max(dp)} m")
+
+    out, walls_ms = {}, {}
+    for name, kw in CONFIGS.items():
+        cfg = case.cfg.replace(**kw)
+        lm_fixed_iters_batch(*b.args, cfg, 2, partition=part)  # warm-up
+        for args, p in case.alone:
+            lm_fixed_iters(*args, cfg, 2, partition=p)
+        runs = [timed_batch(case, cfg, iters), timed_alone(case, cfg, iters),
+                timed_alone(case, cfg, iters), timed_batch(case, cfg, iters)]
+        batch, alone = runs[0], runs[1]
+        if runs[3][3] != batch[3] or runs[2][3] != alone[3]:
+            raise AssertionError(f"seed_batch {name}: two runs differ")
+        res, counts = batch[0], batch[2]
+        costs, costs0 = batch[3], res.initial_cost.tolist()
+        rel = [abs(c - a) / abs(a) for c, a in zip(costs, alone[3])]
+        rel64 = [abs(c - r) / abs(r) for c, r in zip(costs, ref64)]
+        bitwise = [bool(torch.equal(res.poses[i], r.poses))
+                   and costs[i] == a for i, ((r, _), a)
+                   in enumerate(zip(alone[0], alone[3]))]
+        batch_wall = (runs[0][1] + runs[3][1]) / 2
+        alone_wall = (runs[1][1] + runs[2][1]) / 2
+        walls_ms[name] = batch_wall * 1e3 / iters
+        per_iter = {k: n / iters for k, n in counts.items()}
+        log("seed_batch", config=name, iters=iters,
+            batch_wall_s=json.dumps([round(runs[0][1], 4),
+                                     round(runs[3][1], 4)]),
+            lm_it_per_s=round(B * iters / batch_wall, 2),
+            alone_total_wall_s=json.dumps([round(runs[1][1], 4),
+                                           round(runs[2][1], 4)]),
+            alone_lm_it_per_s=round(B * iters / alone_wall, 2),
+            batch_ms_per_iter=round(walls_ms[name], 4),
+            peak_bytes_batch=batch[4], peak_bytes_alone=alone[4],
+            costs=json.dumps(costs), initial_costs=json.dumps(costs0),
+            alone_costs=json.dumps(alone[3]), rel_diff=json.dumps(rel),
+            bitwise_equal=json.dumps(bitwise),
+            f64_costs=json.dumps(ref64), rel_to_f64=json.dumps(rel64),
+            gate_rel_to_f64=SEED_BATCH_F32_RTOL[name],
+            accepted=json.dumps(res.accepted.tolist()),
+            launches_per_iter=json.dumps(per_iter), card=json.dumps(smi))
+        bad = [i for i, (c, c0) in enumerate(zip(costs, costs0))
+               if not (c0 > SEED_BATCH_COST0_MIN
+                       and c < SEED_BATCH_COST_FRAC * c0)]
+        if bad:
+            raise AssertionError(f"seed_batch {name}: seeds {bad} miss "
+                                 "bench.py's gate")
+        if max(rel64) > SEED_BATCH_F32_RTOL[name]:
+            raise AssertionError(
+                f"seed_batch {name}: float32 cost {max(rel64)} from the "
+                f"float64 batch's, above {SEED_BATCH_F32_RTOL[name]}")
+        for i, c in enumerate(alone[2]):
+            diff = {k: (counts[k], c[k]) for k in PHASE_KERNELS[
+                "seed_batch_blocked_micro"] if counts[k] != c[k]}
+            if diff:
+                raise AssertionError(f"seed_batch {name}: launches of the "
+                                     f"batch vs seed {i} alone: {diff}")
+        require_launches(f"seed_batch_{name}", counts)
+        out[f"seed_batch_{name}"] = counts
+
+    def device_times():  # profiled in the report, after every other time
+        for name, kw in CONFIGS.items():
+            log("seed_batch", config=name, **batch_device_ms(
+                case, case.cfg.replace(**kw), walls_ms[name]),
+                wall_ms_per_iter=walls_ms[name], card=json.dumps(smi))
+
+    timings.append(lambda: ([], [], device_times))
+    return out
 
 
 def reference(key: str) -> dict:
@@ -2271,6 +2563,7 @@ def main() -> int:
         ("plain_dcs", lambda: phase_plain_dcs(device, smi)),
         ("scale", lambda: phase_scale(device, smi)),
         ("blocked", lambda: phase_blocked(device, smi)),
+        ("seed_batch", lambda: phase_seed_batch(device, smi, timings)),
         ("method2_path", lambda: phase_method2_path(smi)),
         ("method2_dense", lambda: phase_method2_dense(device, smi)),
         ("method2_ab", lambda: phase_method2_ab(device, smi)),
@@ -2299,7 +2592,8 @@ def main() -> int:
     log("total", seconds=round(time.perf_counter() - t_all, 3))
 
     launches = {"main_path": out["main_path"],
-                "blocked_path": out["blocked"], **out["method2_path"],
+                "blocked_path": out["blocked"], **out["seed_batch"],
+                **out["method2_path"],
                 "method2_dense": out["method2_dense"],
                 "method2_ab": out["method2_ab"], **out["pcg"],
                 "report_stages": out["report_stages"],
@@ -2311,8 +2605,10 @@ def main() -> int:
                 **out["dist_edge"], **out["dist_schur"]}
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": launches[path][k], **out["kernels"][k],
-         "launches_by_path": {p: c[k] for p, c in launches.items()}}
+         "launches": launches[path][KERNEL_COUNTER.get(k, k)],
+         **out["kernels"][k],
+         "launches_by_path": {p: c[KERNEL_COUNTER.get(k, k)]
+                              for p, c in launches.items()}}
         for k, (src, tpu, path) in KERNEL_INFO.items()
     ]
     print(json.dumps({"kernels": kernels}))

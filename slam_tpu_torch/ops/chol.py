@@ -12,10 +12,13 @@ is ``rsqrt(d_jj)`` times the column, so a non-SPD panel gives NaN; the
 inverse is forward substitution, each entry's sum in four partial sums;
 the strict upper triangles come out as exact zeros.
 
-The TPU package also has ``custom_vmap``-folded wrappers that fold an outer
-``vmap`` axis into the kernel's lane batch.  They have no counterpart here:
-the port runs batches (seeds, chains) as a loop, and folding an outer axis
-is a ``reshape`` to ``(M, p, p)``, which the kernel takes for any ``M``.
+:func:`micro_chol_inv_folded` is the port of the TPU package's
+``custom_vmap``-folded wrapper (``micro_chol_inv_folded``), which folds an
+outer ``vmap`` axis into the kernel's batch so that one pass serves every
+seed: it takes ``A (..., M, p, p)`` and launches the one kernel on the
+``(prod(lead) * M, p, p)`` reshape.  The seed batch's blocked factorisation
+(``solver/batch.py``) hands it the B*P interiors' panels of each panel
+step; at B*P = 128 the kernel takes one CTA a matrix.
 
 The wrapper takes the plain version for CPU tensors only; a CUDA tensor
 launches the kernel or raises, also for a ``p`` beyond what the kernel's
@@ -88,3 +91,16 @@ def micro_chol_inv(A: Tensor) -> tuple[Tensor, Tensor]:
 
 
 micro_chol_inv.launches = 0
+
+
+def micro_chol_inv_folded(A: Tensor) -> tuple[Tensor, Tensor]:
+    """:func:`micro_chol_inv` of ``A (..., M, p, p)`` with every leading
+    axis folded into the batch: one launch (counted on
+    ``micro_chol_inv``) for all ``prod(lead) * M`` panels on a CUDA
+    tensor, the same result as a call per leading index."""
+    if A.dim() < 3 or A.shape[-1] != A.shape[-2]:
+        raise ValueError(f"micro_chol_inv_folded: need (..., M, p, p), got "
+                         f"{tuple(A.shape)}")
+    p = A.shape[-1]
+    L, inv = micro_chol_inv(A.reshape(-1, p, p))
+    return L.reshape(A.shape), inv.reshape(A.shape)

@@ -1,0 +1,184 @@
+"""B seeds' problems in one LM solve: the per-seed batch.
+
+Port of the JAX package's batched Schur solve (``bench.py``,
+``scripts/bench_variants.py``): B seeds' problems of one dataset share
+padded shapes, are stacked (``jax.tree.map(jnp.stack)``) and run as one
+``jax.vmap(lm_fixed_iters)``.  Here stacking is concatenation:
+
+- the edge set is one :class:`EdgeSet` of B*E edges over B*N nodes, seed
+  b's edges at ``[b*E, (b+1)*E)`` with endpoints offset by ``b*N``, each
+  seed's edges padded to E with inactive ones;
+- the free mask is each seed's, stacked;
+- the partition holds each seed's (``build_slots(pad_shapes=...)``, the
+  maxima of ``partition_stats``) as B*P interior blocks and B separators
+  of ``D*ns`` (``schur.partition_from_slots(seeds=B)``), not the
+  partition of the disjoint union, whose one separator of ``B*D*ns``
+  would cost B^2 times the factor work.
+
+:func:`lm_fixed_iters_batch` runs every seed's LM with its own damping,
+acceptance and cost, as the ``vmap`` does (``lm_fixed_iters`` reads the
+seed axis from the partition), and each kernel launch of an iteration
+serves all B seeds: one linearisation over the B*E edges, the
+gathers and grouped scatters of one seed's iteration, and on the blocked
+path one ``micro_chol_inv`` launch per diagonal panel for the B*P
+interiors (``micro_chol_inv_folded``).  A single problem's arithmetic
+is unchanged.  The batch takes the Schur solver with ``robust`` none, dcs
+or sc_varpro; the other solvers and joint SC raise, naming the
+``ROADMAP.md`` item that ports them.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from slam_tpu_torch.config import SolverConfig
+from slam_tpu_torch.graph import PoseGraph
+from slam_tpu_torch.runtime import require_type
+from slam_tpu_torch.solver import schur
+from slam_tpu_torch.solver.lm import LMResult, lm_fixed_iters
+from slam_tpu_torch.solver.problem import EdgeSet, FreeMask, \
+    edge_set_from_arrays, padded_edge_arrays
+
+Tensor = torch.Tensor
+
+#: What the batch does not take, and the ROADMAP item that ports it.
+NOT_BATCHED = {
+    "pcg": "A19a (the batched PCG, scripts/bench_pcg.py)",
+    "woodbury": "A19b (the batched Woodbury solver, "
+                "scripts/bench_woodbury.py)",
+    "dense": "A19c (the batched dense solver)",
+    "sc": "A19d (joint switchable constraints in the batch)",
+}
+
+
+class SeedBatch(NamedTuple):
+    """B seeds' problems stacked for :func:`lm_fixed_iters_batch`."""
+
+    poses0: Tensor        # (B, N, D) each seed's initial poses
+    switches0: Tensor     # (B, E)
+    edges: EdgeSet        # B*E edges over B*N nodes
+    free: FreeMask        # (B*N,)
+    partition: schur.SchurPartition  # seeds=B
+    pad_shapes: tuple     # (ni, ns, ek, es, nsk) shared by the seeds
+
+    @property
+    def seeds(self) -> int:
+        return self.poses0.shape[0]
+
+    @property
+    def args(self) -> tuple:
+        """``(poses0, switches0, edges, free)``."""
+        return self.poses0, self.switches0, self.edges, self.free
+
+
+def _offset(a: np.ndarray, k: int) -> np.ndarray:
+    """``a + k`` where ``a`` holds an index, ``-1`` (padding) kept."""
+    return np.where(a >= 0, a + k, -1)
+
+
+def stack_slots(slots: Sequence[schur.SlotMaps]) -> schur.SlotMaps:
+    """One seed batch's slot maps from each seed's, all padded to one
+    shape: node, edge and separator slot ids offset by each seed's
+    ``b*N``, ``b*E`` and ``b*ns``; block-local slots unchanged."""
+    s0 = slots[0]
+    N, E, ns = s0.num_nodes, s0.num_edges, s0.sep_ids.shape[0]
+    for s in slots:
+        if (s.num_nodes, s.num_edges) != (N, E) or any(
+                getattr(s, f).shape != getattr(s0, f).shape
+                for f in schur.SlotMaps._fields[:11]):
+            raise ValueError("the seeds' slot maps differ in shape: build "
+                             "them with one pad_shapes")
+
+    def cat(field, step=0):
+        return np.concatenate([_offset(getattr(s, field), b * step)
+                               if step else getattr(s, field)
+                               for b, s in enumerate(slots)])
+
+    return schur.SlotMaps(
+        int_ids=cat("int_ids", N), sep_ids=cat("sep_ids", N),
+        edge_ids=cat("edge_ids", E), int_a=cat("int_a"), int_b=cat("int_b"),
+        sep_a=cat("sep_a"), sep_b=cat("sep_b"), loc_ids=cat("loc_ids", ns),
+        sepedge_ids=cat("sepedge_ids", E), se_sep_a=cat("se_sep_a", ns),
+        se_sep_b=cat("se_sep_b", ns), num_nodes=len(slots) * N,
+        num_edges=len(slots) * E)
+
+
+def seed_batch(graphs: Sequence[PoseGraph], num_blocks: int,
+               dtype=torch.float64, device="cpu") -> SeedBatch:
+    """Stack the seeds' graphs (one dataset: the same nodes; edges in
+    canonical order, padded to the most any seed has), node 0 of each
+    anchored, each seed's ``num_blocks`` index-range partition padded to
+    the maxima of ``partition_stats`` over the seeds (as ``bench.py``
+    builds its batch)."""
+    for g in graphs:
+        require_type(g, PoseGraph, "graphs[]")
+    gs = [g.canonical_order() for g in graphs]
+    N, dim = gs[0].poses.shape
+    if any(g.poses.shape != (N, dim) for g in gs):
+        raise ValueError("the seeds' graphs differ in their nodes")
+    E = max(g.num_edges for g in gs)
+    arrays = [padded_edge_arrays(g, E) for g in gs]
+    stats = [schur.partition_stats(a["ij"], N, num_blocks) for a in arrays]
+    pad = tuple(max(st[i] for st in stats) for i in range(len(stats[0])))
+    slots = [schur.build_slots(a["ij"], N, num_blocks, pad_shapes=pad)
+             for a in arrays]
+    B = len(gs)
+    edges = edge_set_from_arrays(
+        ij=np.concatenate([a["ij"] + b * N for b, a in enumerate(arrays)]),
+        **{k: np.concatenate([a[k] for a in arrays])
+           for k in ("meas", "is_loop", "active", "info")},
+        num_nodes=B * N, dtype=dtype, device=device)
+    node = torch.ones((B, N), dtype=dtype, device=device)
+    node[:, 0] = 0.0
+    return SeedBatch(
+        poses0=torch.as_tensor(np.stack([g.poses for g in gs]), dtype=dtype,
+                               device=device),
+        switches0=torch.ones((B, E), dtype=dtype, device=device),
+        edges=edges, free=FreeMask(node=node.reshape(-1)),
+        partition=schur.partition_from_slots(
+            stack_slots(slots), dtype=dtype, device=device, seeds=B),
+        pad_shapes=pad)
+
+
+def _check_batchable(cfg: SolverConfig, partition) -> None:
+    """Raise for what the seed batch does not take."""
+    require_type(cfg, SolverConfig, "cfg")
+    for what in (cfg.linear_solver, cfg.robust):
+        if what in NOT_BATCHED:
+            raise NotImplementedError(
+                f"the seed batch does not take {what!r} yet: ROADMAP "
+                f"{NOT_BATCHED[what]}")
+    if cfg.linear_solver != "schur":
+        raise ValueError(f"unknown linear solver {cfg.linear_solver!r}")
+    if not isinstance(partition, schur.SchurPartition) \
+            or partition.seeds is None:
+        raise ValueError("the seed batch needs its stacked partition "
+                         "(seed_batch(...).partition)")
+
+
+def lm_fixed_iters_batch(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
+                         free: FreeMask, cfg: SolverConfig, num_iters: int,
+                         partition: schur.SchurPartition) -> LMResult:
+    """Exactly ``num_iters`` LM iterations of each of B seeds, no host
+    read inside: ``lm_fixed_iters`` on the batch's flat problem, which
+    runs every seed as ``jax.vmap(lm_fixed_iters)`` does.  ``poses0`` is
+    ``(B, N, D)``, ``switches0`` ``(B, E)``; the result's poses are
+    ``(B, N, D)``, switches ``(B, E)``, and cost, initial cost, accepted
+    steps, lambda and nu ``(B,)``."""
+    _check_batchable(cfg, partition)
+    B, N, dim = poses0.shape
+    E = switches0.shape[-1]
+    if partition.seeds != B or edges.num_nodes != B * N \
+            or edges.num_edges != B * E:
+        raise ValueError(f"{B} seeds of {N} nodes and {E} edges do not "
+                         f"match the edge set ({edges.num_nodes} nodes, "
+                         f"{edges.num_edges} edges) and the partition's "
+                         f"{partition.seeds} seeds")
+    res = lm_fixed_iters(poses0.reshape(B * N, dim),
+                         switches0.reshape(B * E), edges, free, cfg,
+                         num_iters, partition=partition)
+    return res._replace(poses=res.poses.reshape(B, N, dim),
+                        switches=res.switches.reshape(B, E))

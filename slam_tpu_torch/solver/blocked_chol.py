@@ -11,13 +11,14 @@ separator through it (``SolverConfig.schur_blocked``).
 The diagonal panel's factor and inverse are the native
 ``torch.linalg.cholesky_ex`` and ``solve_triangular``, or, with
 ``pallas_micro`` (``SolverConfig.schur_pallas_micro``), the
-``micro_chol_inv`` kernel: one launch for every matrix of the batch, in
-float32 without inner blocking.  The JAX package also asks for a batch of
-at least 8, since a smaller one leaves most of the TPU kernel's lanes
-idle; the CUDA kernel gives each matrix its own CTAs, so the port takes
-any batch (the sphere2500 interiors are 4).  A panel that is not SPD
-factors to NaN on either route, as ``jnp.linalg.cholesky`` does, so the
-LM loop rejects the step.
+``micro_chol_inv`` kernel through ``micro_chol_inv_folded``: one launch for
+every matrix of the batch, leading axes folded (a seed batch's B*P
+interiors), in float32 without inner blocking.  The JAX package also
+asks for a batch of at least 8, since a smaller one leaves most of the
+TPU kernel's lanes idle; the CUDA kernel gives each matrix its own CTAs,
+so the port takes any batch (the sphere2500 interiors are 4).  A panel
+that is not SPD factors to NaN on either route, as
+``jnp.linalg.cholesky`` does, so the LM loop rejects the step.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from slam_tpu_torch.ops.chol import micro_chol_inv
+from slam_tpu_torch.ops.chol import micro_chol_inv_folded
 
 Tensor = torch.Tensor
 
@@ -62,16 +63,15 @@ def _panel_factor(a: Tensor, inner: int,
                   pallas_micro: bool = False) -> tuple[Tensor, Tensor]:
     """Cholesky and explicit inverse of one (..., p, p) diagonal panel.
 
-    ``pallas_micro`` takes the ``micro_chol_inv`` kernel for float32
-    panels without inner blocking (the separator's factor never asks for
-    it).  ``inner > 0`` factors the panel itself by ``inner``-wide blocks
-    and builds its inverse by panel forward substitution against the
-    identity.
+    ``pallas_micro`` takes the ``micro_chol_inv`` kernel, every leading
+    axis folded into one launch, for float32 panels without inner blocking
+    (the separator's factor never asks for it).  ``inner > 0`` factors
+    the panel itself by ``inner``-wide blocks and builds its inverse by
+    panel forward substitution against the identity.
     """
     p = a.shape[-1]
     if pallas_micro and a.dtype == torch.float32 and not inner:
-        L, inv = micro_chol_inv(a.reshape(-1, p, p))
-        return L.reshape(a.shape), inv.reshape(a.shape)
+        return micro_chol_inv_folded(a)
     if not inner or p <= inner or p % inner:
         L = _chol_panel(a)
         return L, _inv_lower_panel(L)

@@ -6,6 +6,10 @@ none/dcs (methods 0/1) run the per-edge chain as the fused
 endpoints itself; sc/sc_varpro, and every mode on SE(3), run the plain
 chain below, after one ``gather_rows`` launch per source.
 The node sums of a call are one ``scatter_add_rows`` launch.
+
+``seeds=B`` reads the edges as B seeds' problems, each a contiguous block
+of ``E / B`` edges (``solver/batch.py``), and returns each seed's cost,
+``(B,)``; the per-edge and per-node arithmetic is the same.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ class BlockSystem(NamedTuple):
     Hdiag: Tensor   # (N, D, D) node-diagonal blocks
     Hoff: Tensor    # (E, D, D) off-diagonal block of edge e at (a_e, b_e)
     g: Tensor       # (N, D) gradient J^T W r
-    cost: Tensor    # scalar 0.5 * sum rho(|r|^2)
+    cost: Tensor    # 0.5 * sum rho(|r|^2): scalar, or (B,) per seed
     Ja: Tensor      # (E, R, D) robust-scaled, gauged Jacobian wrt a
     Jb: Tensor      # (E, R, D)
     r: Tensor       # (E, R) robust-scaled residual
@@ -39,6 +43,14 @@ class BlockSystem(NamedTuple):
     Hps_b: Tensor   # (E, D)
     Hss: Tensor     # (E,) switch diagonal
     gs: Tensor      # (E,) switch gradient
+
+
+def _total(x: Tensor, seeds: int | None) -> Tensor:
+    """The sum of ``x``, or with ``seeds`` each seed's: ``(seeds,)`` sums
+    of contiguous blocks."""
+    if seeds is None:
+        return torch.sum(x)
+    return torch.sum(x.reshape(seeds, -1), dim=-1)
 
 
 def _fixed_identity(free: FreeMask, D: int, scale: float) -> Tensor:
@@ -58,8 +70,10 @@ def linearize(
     huber_delta: float,
     sc_prior_lambda: float,
     fixed_identity_scale: float = 1.0,
+    seeds: int | None = None,
 ) -> BlockSystem:
-    """Linearise the robust pose-graph objective at ``poses``."""
+    """Linearise the robust pose-graph objective at ``poses``; with
+    ``seeds``, ``cost`` holds each seed's."""
     if poses.shape[0] != edges.num_nodes:
         raise ValueError(f"EdgeSet plans cover {edges.num_nodes} nodes, "
                          f"got {poses.shape[0]} poses")
@@ -67,7 +81,8 @@ def linearize(
         return _linearize_fused(poses, edges, free, model=model,
                                 robust=robust, dcs_phi=dcs_phi,
                                 huber_delta=huber_delta,
-                                fixed_identity_scale=fixed_identity_scale)
+                                fixed_identity_scale=fixed_identity_scale,
+                                seeds=seeds)
 
     pa, pb = edges.gather_ab(poses)
     fa, fb = edges.gather_ab(free.node)
@@ -95,7 +110,8 @@ def linearize(
 
     s2 = torch.sum(e * e, dim=-1)
     w = kernels.huber_weight(s2, huber_delta) * edges.active
-    cost = 0.5 * torch.sum(edges.active * kernels.huber_rho(s2, huber_delta))
+    cost = 0.5 * _total(edges.active * kernels.huber_rho(s2, huber_delta),
+                        seeds)
     wj = w[:, None, None]
     Haa = wj * torch.einsum("eki,ekj->eij", Ja, Ja)
     Hbb = wj * torch.einsum("eki,ekj->eij", Jb, Jb)
@@ -114,7 +130,7 @@ def linearize(
         gs_meas = w * torch.sum(Js * e, dim=-1)
         lam = sc_prior_lambda
         prior_r = kernels.switch_prior_residual(switches, lam)
-        cost = cost + 0.5 * torch.sum(live * prior_r * prior_r)
+        cost = cost + 0.5 * _total(live * prior_r * prior_r, seeds)
         Hss = live * (Hss_meas + lam) + (1.0 - live)
         gs = live * (gs_meas - math.sqrt(lam) * prior_r)
         Hps_a = live[:, None] * Hps_a
@@ -136,7 +152,7 @@ def _neutral_switches(E: int, model, like: Tensor) -> dict:
 
 
 def _linearize_fused(poses, edges, free, *, model, robust, dcs_phi,
-                     huber_delta, fixed_identity_scale) -> BlockSystem:
+                     huber_delta, fixed_identity_scale, seeds) -> BlockSystem:
     """The per-edge chain as one launch of the fused kernel on the poses
     and the edge endpoints, node sums through one ``scatter_add_rows``
     launch."""
@@ -148,7 +164,8 @@ def _linearize_fused(poses, edges, free, *, model, robust, dcs_phi,
                                     fixed_identity_scale)
     E = edges.num_edges
     return BlockSystem(
-        Hdiag=Hdiag, Hoff=out["Hoff"], g=g, cost=0.5 * torch.sum(out["rho"]),
+        Hdiag=Hdiag, Hoff=out["Hoff"], g=g,
+        cost=0.5 * _total(out["rho"], seeds),
         Ja=out["Ja"], Jb=out["Jb"], r=out["e"], w=out["w"],
         Js=torch.zeros((E, model.residual_dim), dtype=poses.dtype,
                        device=poses.device),
@@ -165,8 +182,10 @@ def cost_only(
     dcs_phi: float,
     huber_delta: float,
     sc_prior_lambda: float,
+    seeds: int | None = None,
 ) -> Tensor:
-    """Objective value only (for LM step accept/reject)."""
+    """Objective value only (for LM step accept/reject); with ``seeds``,
+    each seed's."""
     e = model.residual(*edges.gather_ab(poses), edges.meas)
     loop_f = edges.loop_f.to(poses.dtype)
     if robust == "dcs":
@@ -178,11 +197,12 @@ def cost_only(
         psi = kernels.sc_varpro_switch(e, sc_prior_lambda)
         e = (loop_f * psi + (1 - loop_f))[:, None] * e
     s2 = torch.sum(e * e, dim=-1)
-    cost = 0.5 * torch.sum(edges.active * kernels.huber_rho(s2, huber_delta))
+    cost = 0.5 * _total(edges.active * kernels.huber_rho(s2, huber_delta),
+                        seeds)
     if robust == "sc":
         live = edges.active * loop_f
         pr = kernels.switch_prior_residual(switches, sc_prior_lambda)
-        cost = cost + 0.5 * torch.sum(live * pr * pr)
+        cost = cost + 0.5 * _total(live * pr * pr, seeds)
     return cost
 
 

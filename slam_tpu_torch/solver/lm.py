@@ -5,6 +5,12 @@ Python loops over device tensors: the state stays on the device, and
 :func:`lm_solve` reads one flag per iteration (``converged``) on the host.
 Damping is Marquardt-scaled with the Nielsen update; ``lm_fixed_iters``
 also carries the opt-in stock-Ceres bookkeeping (``trust_region="ceres"``).
+
+``lm_fixed_iters`` on a seed batch's partition (``SchurPartition.seeds``,
+``solver/batch.py``) runs B seeds' problems as one flat problem of B*N
+nodes and B*E edges, as ``jax.vmap(lm_fixed_iters)`` runs them: cost,
+lambda, nu and acceptance are ``(B,)``, each seed's repeated over its own
+rows, and every sum is each seed's.
 """
 
 from __future__ import annotations
@@ -16,7 +22,7 @@ import torch
 from slam_tpu_torch.config import SolverConfig
 from slam_tpu_torch.runtime import require_type
 from slam_tpu_torch.solver import linear
-from slam_tpu_torch.solver.linearize import cost_only, linearize
+from slam_tpu_torch.solver.linearize import _total, cost_only, linearize
 from slam_tpu_torch.solver.models import model_for_dim
 from slam_tpu_torch.solver.problem import EdgeSet, FreeMask
 
@@ -26,7 +32,7 @@ Tensor = torch.Tensor
 class LMState(NamedTuple):
     poses: Tensor     # (N, 3) or (N, 7)
     switches: Tensor  # (E,)
-    cost: Tensor      # scalar current cost
+    cost: Tensor      # scalar current cost ((B,) in a seed batch, as below)
     lam: Tensor       # LM damping
     nu: Tensor        # rejection growth factor
     it: int           # iterations executed
@@ -126,45 +132,65 @@ def _cost_kw(cfg: SolverConfig, model) -> dict:
                 sc_prior_lambda=cfg.sc_prior_lambda)
 
 
-def _propose(s: LMState, edges, free, cfg, model, plan, kw, gnc):
+def _rows(v: Tensor, like: Tensor, seeds: int | None) -> Tensor:
+    """``v`` as it broadcasts over ``like``'s rows: unchanged for one
+    problem; in a seed batch each seed's entry of ``(B,)`` repeated over
+    its block of ``like.shape[0] / B`` rows."""
+    if seeds is None:
+        return v
+    n = like.shape[0]
+    return v[:, None].expand(seeds, n // seeds).reshape(
+        (n,) + (1,) * (like.dim() - 1))
+
+
+def _propose(s: LMState, edges, free, cfg, model, plan, kw, gnc,
+             seeds: int | None = None):
     """One linearise-solve-retract step from ``s``: returns the candidate,
-    the model's predicted reduction and the solve's inner iterations."""
+    the model's predicted reduction and the solve's inner iterations
+    (each seed's reduction in a batch of ``seeds``)."""
     kw_t = dict(kw, dcs_phi=_gnc_phi(cfg, s.it))
     system = linearize(s.poses, s.switches, edges, free, **kw_t)
     # Under GNC the objective changes each iteration; compare at the
     # current phi (system.cost is the objective at s.poses and phi_t).
     prev_cost = system.cost if gnc else s.cost
-    dx, inner = _solve_linear(system, edges, s.lam, cfg, plan)
+    lam_x = _rows(s.lam, s.poses, seeds)
+    dx, inner = _solve_linear(system, edges, lam_x, cfg, plan)
     new_poses = model.retract(s.poses, dx.poses)
     new_switches = s.switches + dx.switches
     new_cost = cost_only(new_poses, new_switches, edges, **kw_t)
     d = torch.diagonal(system.Hdiag, dim1=-2, dim2=-1)
-    damp = s.lam * torch.clamp(d, linear._DIAG_MIN, linear._DIAG_MAX)
-    ds = s.lam * torch.clamp(system.Hss, linear._DIAG_MIN, linear._DIAG_MAX)
+    damp = lam_x * torch.clamp(d, linear._DIAG_MIN, linear._DIAG_MAX)
+    ds = _rows(s.lam, s.switches, seeds) * torch.clamp(
+        system.Hss, linear._DIAG_MIN, linear._DIAG_MAX)
     model_red = 0.5 * (
-        torch.sum(dx.poses * (damp * dx.poses - system.g))
-        + torch.sum(dx.switches * (ds * dx.switches - system.gs)))
+        _total(dx.poses * (damp * dx.poses - system.g), seeds)
+        + _total(dx.switches * (ds * dx.switches - system.gs), seeds))
     return new_poses, new_switches, new_cost, prev_cost, model_red, inner
 
 
-def _scalar(v, **kw) -> Tensor:
-    """A 0-d tensor of ``v``: a number is filled in on the device (no
-    host-to-device copy, which would synchronise), a tensor converted."""
+def _scalar(v, shape=(), **kw) -> Tensor:
+    """A 0-d tensor of ``v`` (or one entry per seed, ``shape=(B,)``): a
+    number is filled in on the device (no host-to-device copy, which would
+    synchronise), a tensor converted."""
     if isinstance(v, Tensor):
-        return v.to(**kw)
-    return torch.full((), v, **kw)
+        v = v.to(**kw)
+        return v.expand(shape).clone() if shape else v
+    return torch.full(shape, v, **kw)
 
 
 def _init_state(poses0, switches0, cost0, cfg, lam0=None, nu0=None,
                 it0=None) -> LMState:
+    """The start; its per-problem entries take ``cost0``'s shape."""
     kw = dict(dtype=poses0.dtype, device=poses0.device)
+    shape = cost0.shape
     return LMState(
         poses=poses0, switches=switches0, cost=cost0,
-        lam=_scalar(cfg.init_lambda if lam0 is None else lam0, **kw),
-        nu=_scalar(2.0 if nu0 is None else nu0, **kw),
+        lam=_scalar(cfg.init_lambda if lam0 is None else lam0, shape, **kw),
+        nu=_scalar(2.0 if nu0 is None else nu0, shape, **kw),
         it=0 if it0 is None else int(it0),
-        accepted=torch.zeros((), dtype=torch.int64, device=poses0.device),
-        converged=torch.zeros((), dtype=torch.bool, device=poses0.device),
+        accepted=torch.zeros(shape, dtype=torch.int64, device=poses0.device),
+        converged=torch.zeros(shape, dtype=torch.bool,
+                              device=poses0.device),
         lin_iters=0,
     )
 
@@ -191,6 +217,9 @@ def lm_solve(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
     poses0, switches0 = _cast(poses0, switches0, cfg)
     kw = _cost_kw(cfg, model)
     plan = linear_plan(cfg, edges, partition)
+    if getattr(plan, "seeds", None) is not None:
+        raise NotImplementedError("lm_solve does not take a seed batch yet "
+                                  "(ROADMAP A19e); use lm_fixed_iters")
     gnc = bool(cfg.gnc_anneal_iters) and cfg.robust == "dcs"
     cost0 = cost_only(poses0, switches0, edges, **kw)
     s = _init_state(poses0, switches0, cost0, cfg)
@@ -229,19 +258,22 @@ def lm_fixed_iters(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
                    nu0=None) -> LMResult:
     """Exactly ``num_iters`` LM iterations, no host sync inside.
     ``lam0``/``nu0``/``it0`` continue from a previous result;
-    ``model=None`` takes the model of the poses' width."""
+    ``model=None`` takes the model of the poses' width.  On a seed batch's
+    partition the flat poses and switches are B seeds' (see the module
+    docstring; ``batch.lm_fixed_iters_batch`` takes them stacked)."""
     require_type(cfg, SolverConfig, "cfg")
     model = model or model_for_dim(poses0.shape[-1])
     poses0, switches0 = _cast(poses0, switches0, cfg)
-    kw = _cost_kw(cfg, model)
     plan = linear_plan(cfg, edges, partition)
+    seeds = getattr(plan, "seeds", None)
+    kw = dict(_cost_kw(cfg, model), seeds=seeds)
     gnc = bool(cfg.gnc_anneal_iters) and cfg.robust == "dcs"
     ceres = cfg.trust_region == "ceres"
     cost0 = cost_only(poses0, switches0, edges, **kw)
     s = _init_state(poses0, switches0, cost0, cfg, lam0, nu0, it0)
     for _ in range(num_iters):
         new_poses, new_switches, new_cost, prev_cost, model_red, inner = \
-            _propose(s, edges, free, cfg, model, plan, kw, gnc)
+            _propose(s, edges, free, cfg, model, plan, kw, gnc, seeds)
         lam_rej = torch.clamp(s.lam * s.nu, max=cfg.max_lambda)
         if ceres:
             # Stock-Ceres acceptance and accepted-radius update (see the
@@ -255,8 +287,10 @@ def lm_fixed_iters(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
             accept = new_cost < prev_cost
             lam_acc = torch.clamp(s.lam / 3.0, min=cfg.min_lambda)
         s = LMState(
-            poses=torch.where(accept, new_poses, s.poses),
-            switches=torch.where(accept, new_switches, s.switches),
+            poses=torch.where(_rows(accept, new_poses, seeds), new_poses,
+                              s.poses),
+            switches=torch.where(_rows(accept, new_switches, seeds),
+                                 new_switches, s.switches),
             cost=torch.where(accept, new_cost, prev_cost),
             lam=torch.where(accept, lam_acc, lam_rej),
             nu=torch.where(accept, torch.full_like(s.nu, 2.0), s.nu * 2.0),

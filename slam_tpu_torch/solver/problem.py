@@ -111,10 +111,9 @@ def edge_set_from_arrays(ij, meas, is_loop, active, info, num_nodes: int,
     )
 
 
-def edge_set_from_graph(graph: PoseGraph, dtype=torch.float64, device="cpu",
-                        pad_to: int | None = None) -> EdgeSet:
-    """EdgeSet in canonical edge order; ``pad_to`` appends inactive (0, 0)
-    edges so the edge count is a bucket size."""
+def padded_edge_arrays(graph: PoseGraph, pad_to: int | None = None) -> dict:
+    """The host arrays of :func:`edge_set_from_graph` (the keyword
+    arguments of :func:`edge_set_from_arrays` but the dtype and device)."""
     require_type(graph, PoseGraph, "graph")
     g = graph.canonical_order()
     e = g.num_edges
@@ -126,7 +125,7 @@ def edge_set_from_graph(graph: PoseGraph, dtype=torch.float64, device="cpu",
                            np.zeros((pad, g.edges_meas.shape[1]))])
     if pad and g.edges_meas.shape[1] == 7:
         meas[e:, 3] = 1.0
-    return edge_set_from_arrays(
+    return dict(
         ij=np.concatenate([g.edges_ij, np.zeros((pad, 2), np.int32)]),
         meas=meas,
         is_loop=np.concatenate([g.edge_type != ODOMETRY_EDGE,
@@ -134,8 +133,16 @@ def edge_set_from_graph(graph: PoseGraph, dtype=torch.float64, device="cpu",
         active=np.concatenate([np.ones(e), np.zeros(pad)]),
         info=np.concatenate([g.edges_info,
                              np.zeros((pad, g.edges_info.shape[1]))]),
-        num_nodes=g.num_nodes, dtype=dtype, device=device,
+        num_nodes=g.num_nodes,
     )
+
+
+def edge_set_from_graph(graph: PoseGraph, dtype=torch.float64, device="cpu",
+                        pad_to: int | None = None) -> EdgeSet:
+    """EdgeSet in canonical edge order; ``pad_to`` appends inactive (0, 0)
+    edges so the edge count is a bucket size."""
+    return edge_set_from_arrays(**padded_edge_arrays(graph, pad_to),
+                                dtype=dtype, device=device)
 
 
 def anchor_first_node(n: int, dtype=torch.float64, device="cpu") -> FreeMask:

@@ -26,6 +26,12 @@ interiors and the separator with the panel-blocked Cholesky of
 ``blocked_chol.py``, whose diagonal panels can go through the
 ``micro_chol_inv`` kernel (``pallas_micro``); the default is the native
 ``cholesky_ex``/``solve_triangular`` branch.
+
+A partition built with ``seeds=B`` (``solver/batch.py``) holds B seeds'
+partitions of one padded shape, the counterpart of the JAX package's
+``vmap`` over stacked partitions: its interiors are B*P blocks, and its
+separator is B systems of ``D*ns``, one per seed (never one system of
+``B*D*ns``); each launch of a solve serves every seed.
 """
 
 from __future__ import annotations
@@ -421,9 +427,16 @@ class SchurPartition(NamedTuple):
     plan_S: SegmentPlan    # (P, nsk, nsk) local blocks -> (ns, ns) grid
     plan_rs: SegmentPlan   # (P, nsk) local rows -> (ns,)
     plan_out: SegmentPlan  # [separator slots, interior slots] -> nodes
+    seeds: int | None = None  # B of a seed batch, None for one problem
+
+    @property
+    def sep_lead(self) -> tuple[int, ...]:
+        """Leading shape of the separator system: () or (B,)."""
+        return () if self.seeds is None else (self.seeds,)
 
     @property
     def num_blocks(self) -> int:
+        """Interior blocks: P, or B*P in a seed batch."""
         return self.slots.int_ids.shape[0]
 
     @property
@@ -432,7 +445,8 @@ class SchurPartition(NamedTuple):
 
     @property
     def ns(self) -> int:
-        return self.slots.sep_ids.shape[0]
+        """Separator slots of one problem (of each seed in a batch)."""
+        return self.slots.sep_ids.shape[0] // (self.seeds or 1)
 
     @property
     def ek_max(self) -> int:
@@ -473,12 +487,17 @@ def _grad_entries(e, sa, sb, E):
 
 
 def partition_from_slots(slots: SlotMaps, dtype=torch.float64,
-                         device="cpu") -> SchurPartition:
-    """Precompute the device gathers and scatter plans of a partition."""
+                         device="cpu", seeds: int | None = None
+                         ) -> SchurPartition:
+    """Precompute the device gathers and scatter plans of a partition;
+    ``seeds=B`` reads ``slots`` as B seeds' stacked slot maps, whose
+    separator slots ``b*ns ..`` are seed b's (``batch.stack_slots``)."""
     s = slots
     P, ni = s.int_ids.shape
     nsk = s.loc_ids.shape[1]
-    ns = s.sep_ids.shape[0]
+    lead = () if seeds is None else (seeds,)
+    nst = s.sep_ids.shape[0]    # separator slots in all
+    ns = nst // (seeds or 1)    # of each seed
     N, E = s.num_nodes, s.num_edges
     blk = np.repeat(np.arange(P), s.edge_ids.shape[1])
 
@@ -502,22 +521,25 @@ def partition_from_slots(slots: SlotMaps, dtype=torch.float64,
     plan_F = plan(f_idx, P * ni * nsk, f_src, ((P,), ni, nsk))
     rows, src, sel = _grad_entries(e, ia, ib, E)
     plan_b = plan(blk[sel] * ni + rows, P * ni, src)
-    # C and its rhs: every separator edge, global separator slots.
+    # C and its rhs: every separator edge, global separator slots.  In a
+    # seed batch both endpoints are seed b's slots b*ns + r', so the block
+    # (r, c) lands at (b, r', c') of the (B, ns, ns) grid.
     se = s.sepedge_ids
     r, c, src, _ = _block_entries(se, s.se_sep_a, s.se_sep_b, E)
-    plan_C = plan(r * ns + c, ns * ns, src, ((), ns, ns))
+    plan_C = plan(r * ns + c % ns, nst * ns, src,
+                  (lead, ns, ns))
     rows, src, _ = _grad_entries(se, s.se_sep_a, s.se_sep_b, E)
-    plan_bs = plan(rows, ns, src)
+    plan_bs = plan(rows, nst, src)
     # Local -> global separator expansion of the per-block reductions.
     loc = s.loc_ids
     m1 = np.broadcast_to(loc[:, :, None], (P, nsk, nsk))
     m2 = np.broadcast_to(loc[:, None, :], (P, nsk, nsk))
     ok = (m1 >= 0) & (m2 >= 0)
-    plan_S = plan((m1 * ns + m2)[ok], ns * ns,
+    plan_S = plan((m1 * ns + m2 % ns)[ok], nst * ns,
                   np.arange(P * nsk * nsk).reshape(P, nsk, nsk)[ok],
-                  ((), ns, ns))
+                  (lead, ns, ns))
     okl = loc >= 0
-    plan_rs = plan(loc[okl], ns, np.arange(P * nsk).reshape(P, nsk)[okl])
+    plan_rs = plan(loc[okl], nst, np.arange(P * nsk).reshape(P, nsk)[okl])
     # Solution back to nodes: rows [x_sep (ns), x_int (P*ni)].
     out_nodes = np.concatenate([s.sep_ids, s.int_ids.reshape(-1)])
     oko = out_nodes >= 0
@@ -545,6 +567,7 @@ def partition_from_slots(slots: SlotMaps, dtype=torch.float64,
                                  device=device),
         plan_A=plan_A, plan_F=plan_F, plan_b=plan_b, plan_C=plan_C,
         plan_bs=plan_bs, plan_S=plan_S, plan_rs=plan_rs, plan_out=plan_out,
+        seeds=seeds,
     )
 
 
@@ -580,24 +603,27 @@ def _blocks(mat: Tensor, lead: tuple[int, ...], rows: int, cols: int,
 
 
 class SchurSystem(NamedTuple):
-    """The damped system of a partition in the equilibrated space."""
+    """The damped system of a partition in the equilibrated space (in a
+    seed batch P is B*P, and the separator fields lead with B)."""
 
     A: Tensor      # (P, D*ni, D*ni) interior blocks
     F: Tensor      # (P, D*ni, D*nsk) interior x local separator coupling
     b: Tensor      # (P, D*ni) interior right-hand sides
-    C: Tensor      # (D*ns, D*ns) separator block
-    b_sep: Tensor  # (D*ns,)
+    C: Tensor      # ([B,] D*ns, D*ns) separator block
+    b_sep: Tensor  # ([B,] D*ns)
     s_int: Tensor  # (P, D*ni) equilibration scale of the interior slots
-    s_sep: Tensor  # (D*ns,)
+    s_sep: Tensor  # ([B,] D*ns)
 
 
 def assemble(system: BlockSystem, part: SchurPartition,
              lam: Tensor) -> SchurSystem:
     """Scatter the per-edge blocks into the damped, Jacobi-equilibrated
-    ``D^-1/2 H D^-1/2`` system of the partition (pose unknowns only)."""
+    ``D^-1/2 H D^-1/2`` system of the partition (pose unknowns only).
+    ``lam`` is 0-d, or ``(N, 1)``: each node's (a seed batch's damping)."""
     E, R, D = system.Ja.shape
     dtype = system.Ja.dtype
     P, ni, ns, nsk = part.num_blocks, part.ni_max, part.ns, part.nsk_max
+    sl, nst = part.sep_lead, part.slots.sep_ids.shape[0]
 
     # Node damping, equilibration scale and gauge pins, gathered to slots.
     dnode = torch.diagonal(system.Hdiag, dim1=-2, dim2=-1)     # (N, D)
@@ -614,14 +640,14 @@ def assemble(system: BlockSystem, part: SchurPartition,
     s_int = vi[:, :, 0].reshape(P, ni * D)
     diag_int = (vi[:, :, 1] + torch.maximum(
         vi[:, :, 2], 1.0 - part.int_mask[:, :, None])).reshape(P, ni * D)
-    vs = (vals[P * ni:P * ni + ns].reshape(ns, 3, D)
+    vs = (vals[P * ni:P * ni + nst].reshape(nst, 3, D)
           * part.sep_live[:, None, None])
-    s_sep = vs[:, 0].reshape(ns * D)
+    s_sep = vs[:, 0].reshape(*sl, ns * D)
     diag_sep = (vs[:, 1] + torch.maximum(
-        vs[:, 2], 1.0 - part.sep_live[:, None])).reshape(ns * D)
+        vs[:, 2], 1.0 - part.sep_live[:, None])).reshape(*sl, ns * D)
     # The masks are 0/1 and the scales positive, so this is s_sep's value
     # at each local slot to the bit.
-    s_loc = (vals[P * ni + ns:].reshape(P, nsk, 3, D)[:, :, 0]
+    s_loc = (vals[P * ni + nst:].reshape(P, nsk, 3, D)[:, :, 0]
              * part.loc_live[:, :, None]).reshape(P, nsk * D)
 
     # Per-edge block products: the rows every assembly plan reads.
@@ -641,8 +667,9 @@ def assemble(system: BlockSystem, part: SchurPartition,
     A = A * s_int[:, :, None] * s_int[:, None, :] + torch.diag_embed(diag_int)
     F = F * s_int[:, :, None] * s_loc[:, None, :]
     b = -b.reshape(P, ni * D) * s_int
-    C = C * s_sep[:, None] * s_sep[None, :] + torch.diag(diag_sep)
-    b_sep = -b_sep.reshape(ns * D) * s_sep
+    C = C * s_sep[..., :, None] * s_sep[..., None, :] \
+        + torch.diag_embed(diag_sep)
+    b_sep = -b_sep.reshape(*sl, ns * D) * s_sep
     return SchurSystem(A, F, b, C, b_sep, s_int, s_sep)
 
 
@@ -654,10 +681,13 @@ def schur_solve(system: BlockSystem, edges: EdgeSet, part: SchurPartition,
     only).  ``blocked`` factors with the panel-blocked Cholesky (panel
     width ``panel``, inner blocking ``panel_inner``, diagonal panels of the
     interiors through the ``micro_chol_inv`` kernel with ``pallas_micro``);
-    otherwise the native ops."""
+    otherwise the native ops.  ``lam`` is 0-d or per node (:func:`assemble`).
+    On a seed batch's partition every step serves all B seeds: the B*P
+    interiors in one factorisation, the B separators in another."""
     E, R, D = system.Ja.shape
     dtype, dev = system.Ja.dtype, system.Ja.device
     P, ni, ns, nsk = part.num_blocks, part.ni_max, part.ns, part.nsk_max
+    sl, nst = part.sep_lead, part.slots.sep_ids.shape[0]
     A, F, b, C, b_sep, s_int, s_sep = assemble(system, part, lam)
 
     # Half substitution: with A = L L^T and G = L^-1 [F | b],
@@ -694,16 +724,17 @@ def schur_solve(system: BlockSystem, edges: EdgeSet, part: SchurPartition,
         (_blocks(S_loc, (P,), nsk, nsk, D), part.plan_S),
         (r_loc.reshape(P * nsk, D), part.plan_rs)])
     S = C - S_sum
-    rhs_s = b_sep - r_sum.reshape(ns * D)
+    rhs_s = b_sep - r_sum.reshape(*sl, ns * D)
     if blocked:
-        # A batch of one: the panels never take the micro kernel.
+        # One separator per problem (per seed, as under the JAX package's
+        # vmap): its panels never take the micro kernel.
         sfac = bc.blocked_cholesky(S, panel=panel, inner=panel_inner)
         x_sep = bc.cho_solve_blocked(sfac, rhs_s)
     else:
         Ls, info_s = torch.linalg.cholesky_ex(S)
-        x_sep = torch.cholesky_solve(rhs_s[:, None], Ls)[:, 0]
+        x_sep = torch.cholesky_solve(rhs_s[..., None], Ls)[..., 0]
 
-    x_loc = (gather_rows(x_sep.reshape(ns, D), part.loc_gather)
+    x_loc = (gather_rows(x_sep.reshape(nst, D), part.loc_gather)
              .reshape(P, nsk, D) * part.loc_mask[:, :, None]
              ).reshape(P, nsk * D, 1)
     if blocked and not use_inv:
@@ -717,9 +748,14 @@ def schur_solve(system: BlockSystem, edges: EdgeSet, part: SchurPartition,
     x_int = x_int * s_int
     x_sep = x_sep * s_sep
     dp = scatter_add_rows(
-        torch.cat([x_sep.reshape(ns, D), x_int.reshape(P * ni, D)]),
+        torch.cat([x_sep.reshape(nst, D), x_int.reshape(P * ni, D)]),
         part.plan_out)
-    if not blocked:  # the blocked factor carries its NaN itself
+    if not blocked and part.seeds is None:
+        # The blocked factor carries its NaN itself.
         dp = nan_unless_factored(nan_unless_factored(dp, info), info_s)
+    elif not blocked:  # each seed's own factorisations
+        ok = (info.reshape(part.seeds, -1) == 0).all(-1) & (info_s == 0)
+        dp = torch.where(ok.repeat_interleave(dp.shape[0] // part.seeds)
+                         [:, None], dp, torch.full_like(dp, np.nan))
     return Update(poses=dp,
                   switches=torch.zeros((E,), dtype=dtype, device=dev))

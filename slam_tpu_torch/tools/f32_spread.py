@@ -3,7 +3,7 @@
     python -m slam_tpu_torch.tools.f32_spread [--device cuda|cpu]
         [--perturb 4] [--robust dcs|sc|sc_varpro]
         [--linear-solver schur|dense|pcg] [--cli]
-        [--problem intel|sphere2500]
+        [--problem intel|sphere2500|seed_batch]
 
 Runs on the CUDA device unless ``--device cpu`` is given.
 
@@ -19,6 +19,12 @@ DCS, Schur with 4 index blocks, 30 ``lm_fixed_iters``;
 there the float64 runs take the perturbed copies too, so that the spread
 of float64 under the same input noise tells how much of the float32
 spread is the trajectory's own sensitivity.
+``--problem seed_batch`` takes the seed batch of ``bench.py``'s INTEL
+row (``tools/problems.intel50_seed_batch``: seeds 0-7, 50
+``lm_fixed_iters`` of the batch): each seed's float32 cost, of the batch
+from the initial poses and the perturbed copies and of the seed run alone
+from the initial poses, against that seed's float64 batch cost (native;
+blocked-plain beside it).
 For each factorisation of the Schur solver -- native, blocked (panel 128)
 with the plain panel factor, blocked with ``micro_chol_inv`` -- or the one
 dense or PCG solve, it runs float32 from the initial poses and from
@@ -42,9 +48,9 @@ import time
 import numpy as np
 import torch
 
-from slam_tpu_torch.tools.problems import CONFIGS, PROBLEMS, ROBUST, \
-    SOLVERS, SPHERE_ITERS, intel50, intel50_plain, reference_key, \
-    sphere2500, sphere_reference_key
+from slam_tpu_torch.tools.problems import BATCH_ITERS, CONFIGS, PROBLEMS, \
+    ROBUST, SOLVERS, SPHERE_ITERS, intel50, intel50_plain, \
+    intel50_seed_batch, reference_key, sphere2500, sphere_reference_key
 
 REF = pathlib.Path(__file__).resolve().parents[1] / "data" / \
     "reference_costs.json"
@@ -79,6 +85,10 @@ def main(argv=None) -> int:
         return 1
     if args.cli and (args.robust == "dcs" or args.linear_solver != "schur"):
         raise ValueError("--cli is the method-2 run on the Schur solver")
+    if args.problem == "seed_batch":
+        if args.cli or args.robust != "dcs" or args.linear_solver != "schur":
+            raise ValueError("the seed batch is the plain-DCS Schur recipe")
+        return batch_spread(args)
     if args.problem == "sphere2500":
         if args.cli or args.robust != "dcs" or args.linear_solver != "schur":
             raise ValueError("sphere2500 is the plain-DCS Schur recipe")
@@ -164,6 +174,59 @@ def sphere_spread(args) -> int:
     print(json.dumps(out))
     return 0
 
+
+def batch_spread(args) -> int:
+    """The seed batch's spread: each seed against its float64 batch
+    cost."""
+    from slam_tpu_torch.solver.batch import lm_fixed_iters_batch
+    from slam_tpu_torch.solver.lm import lm_fixed_iters
+
+    out = {"device": args.device, "problem": "seed_batch",
+           "iters": BATCH_ITERS, "lm": "lm_fixed_iters",
+           "perturb": args.perturb}
+    if args.device == "cuda":
+        out["card"] = torch.cuda.get_device_name(0)
+    t0 = time.perf_counter()
+    c64 = intel50_seed_batch(args.device, torch.float64)
+    b64 = c64.batch
+    f64 = {}
+    for name in ("native", "blocked_plain"):
+        f64[name] = lm_fixed_iters_batch(
+            *b64.args, c64.cfg.replace(**CONFIGS[name]), BATCH_ITERS,
+            partition=b64.partition).cost.tolist()
+    ref = f64["native"]
+    out["float64_native"] = ref
+    out["float64_blocked_plain_rel"] = [(c - r) / r for c, r in
+                                        zip(f64["blocked_plain"], ref)]
+    c32 = intel50_seed_batch(args.device, torch.float32)
+    b32 = c32.batch
+    base = b64.poses0.cpu().numpy()
+    runs = [base] + [
+        base * (1.0 + 1e-7 * np.random.default_rng(s).normal(
+            size=base.shape)) for s in range(args.perturb)]
+    for name, kw in CONFIGS.items():
+        cfg = c32.cfg.replace(**kw)
+        rels = []
+        for poses in runs:
+            p0 = torch.as_tensor(poses, dtype=torch.float32,
+                                 device=args.device)
+            cost = lm_fixed_iters_batch(p0, *b32.args[1:], cfg, BATCH_ITERS,
+                                        partition=b32.partition).cost
+            rels.append([(c - r) / r for c, r in zip(cost.tolist(), ref)])
+        alone = [(float(lm_fixed_iters(*a, cfg, BATCH_ITERS,
+                                       partition=p).cost) - r) / r
+                 for (a, p), r in zip(c32.alone, ref)]
+        out[f"{name}_float32"] = rels
+        out[f"{name}_float32_alone"] = alone
+        print(f"[spread] {name}_float32 per seed max_abs="
+              f"{[max(abs(r[i]) for r in rels) for i in range(len(ref))]} "
+              f"alone={alone} t={time.perf_counter() - t0:.1f}s",
+              flush=True)
+    for name in CONFIGS:
+        out[f"max_abs_rel_{name}_float32"] = max(
+            abs(r) for rs in out[f"{name}_float32"] for r in rs)
+    print(json.dumps(out))
+    return 0
 
 
 if __name__ == "__main__":

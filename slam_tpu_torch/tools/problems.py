@@ -18,6 +18,12 @@ constraints (``"sc"``, method 2) or their variable projection
   the edge set's own (canonical) order; ``bench.py`` builds it over the
   order before the bogus edges move to the end.
 
+- the seed batch, the recipe of ``bench.py``'s INTEL row: INTEL with 50
+  bogus loops of each of seeds 0-7, dataset poses, node 0 anchored, the
+  Schur solver with 16 index blocks, each seed's partition padded to the
+  maxima of ``partition_stats`` over the seeds, plain DCS, for
+  ``solver/batch.py``'s ``lm_fixed_iters_batch``.
+
 ``CONFIGS`` are the Schur factorisations they are compared under;
 :func:`reference_key` and :func:`sphere_reference_key` name the float64
 JAX reference of a run in ``slam_tpu_torch/data/reference_costs.json``.
@@ -43,7 +49,7 @@ CONFIGS = {
 
 ROBUST = ("dcs", "sc", "sc_varpro")
 SOLVERS = ("schur", "dense", "pcg")
-PROBLEMS = ("intel", "sphere2500")
+PROBLEMS = ("intel", "sphere2500", "seed_batch")
 
 
 def reference_key(robust: str, solver: str, cli: bool = False) -> str:
@@ -184,3 +190,52 @@ def sphere2500(device, dtype) -> FixedCase:
     cfg = SolverConfig(robust="dcs", linear_solver="schur",
                        dtype=str(dtype).replace("torch.", ""))
     return FixedCase(graph, args, cfg, part, False)
+
+
+#: Seeds, Schur index blocks and LM iterations of the seed batch
+#: (``bench.py``'s INTEL row: ``BATCH``, ``NUM_BLOCKS``, ``LM_ITERS``).
+BATCH_SEEDS = tuple(range(8))
+BATCH_BLOCKS = 16
+BATCH_ITERS = 50
+
+
+class BatchCase(NamedTuple):
+    """The seed batch and what runs each seed alone on its share of it."""
+
+    graphs: list       # each seed's canonical-order PoseGraph
+    batch: object      # solver.batch.SeedBatch
+    cfg: object        # SolverConfig: plain DCS on the Schur solver
+    alone: list        # per seed: (lm_fixed_iters args, SchurPartition)
+
+
+def intel50_seed_batch(device, dtype) -> BatchCase:
+    """``bench.py``'s batch: ``add_random_outliers(50, seed=s)`` of INTEL
+    for each seed, stacked by ``solver.batch.seed_batch``; and each seed
+    alone, with the same poses and free mask and its partition built with
+    the batch's pad shapes (the shapes it has inside the batch)."""
+    import numpy as np
+
+    from slam_tpu_torch.config import SolverConfig
+    from slam_tpu_torch.io import g2o
+    from slam_tpu_torch.solver.batch import seed_batch
+    from slam_tpu_torch.solver.problem import anchor_first_node, \
+        edge_set_from_graph
+    from slam_tpu_torch.solver.schur import build_partition
+
+    graph = g2o.load_g2o(g2o.find_dataset("INTEL"))
+    graphs = [graph.add_random_outliers(50, seed=s).canonical_order()
+              for s in BATCH_SEEDS]
+    batch = seed_batch(graphs, BATCH_BLOCKS, dtype=dtype, device=device)
+    alone = []
+    for b, g in enumerate(graphs):
+        edges = edge_set_from_graph(g, dtype=dtype, device=device)
+        alone.append(((batch.poses0[b], batch.switches0[b], edges,
+                       anchor_first_node(g.num_nodes, dtype=dtype,
+                                         device=device)),
+                      build_partition(np.asarray(g.edges_ij), g.num_nodes,
+                                      BATCH_BLOCKS, dtype=dtype,
+                                      device=device,
+                                      pad_shapes=batch.pad_shapes)))
+    cfg = SolverConfig(robust="dcs", linear_solver="schur",
+                       dtype=str(dtype).replace("torch.", ""))
+    return BatchCase(graphs, batch, cfg, alone)

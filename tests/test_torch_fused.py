@@ -33,6 +33,7 @@ from slam_tpu_torch.methods.layering import LayeringManager, use_fused
 from slam_tpu_torch.methods.mcts import MctsManager
 from slam_tpu_torch.utils import checkpoint as tck
 from slam_tpu_torch.utils.logging import RunLogger
+from test_torch_host import jax_native  # noqa: F401  (fixture)
 
 TOL = 1e-9
 _SOLVER = SolverConfig(linear_solver="dense", dtype="float64")
@@ -461,7 +462,12 @@ def _read(path):
 
 
 @pytest.mark.parametrize("method", [0, 1, 2])
-def test_cli_checkpoint_matches_the_jax_run(tmp_path, circle_g2o, method):
+def test_cli_checkpoint_matches_the_jax_run(jax_native, tmp_path,  # noqa: F811
+                                            circle_g2o, method):
+    """Both CLIs with ``--checkpoint``: the text files line for line (the
+    JAX side writes them with its native writer, ``jax_native``, as the
+    port does), the optimised poses within TOL, the same last log line,
+    and a resume at completion that runs no chunk."""
     from slam_tpu import cli as jcli
     from slam_tpu_torch.io import g2o
 
