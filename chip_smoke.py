@@ -46,6 +46,15 @@ the script exits non-zero and prints no result line):
      real first and trailing panels folded over its 8 seeds; L bitwise
      equal to the plain version's of the flat batch, the inverse within
      TOL (SPD) or RESID_FACTOR (real panels);
+   - the DCS rescue's chain batch (``tools/problems.intel50_chains``: the
+     first consensus round of ``INTEL 50 1 --seed 42``, its six chains'
+     masks on six copies of the problem, 9216 edges over 7368 nodes): one
+     batched LM iteration on the Schur solver (96 interiors, 6
+     separators; in float32 also blocked, with the kernel) and on the
+     dense solver (six 3684 x 3684 matrices) recorded and replayed as
+     above, the linearisation on the chains' masks held to its plain
+     version; ``micro_chol_inv_folded`` on the chain batch's real first
+     and trailing panels folded over its six chains;
 3. the main path through the CLI, ``INTEL 50 1 --seed 42`` (auto init,
    auto solver = Schur, rescue on, float32): the output files, the launch
    count of every kernel during that run, and the ATE against the golden
@@ -83,6 +92,21 @@ the script exits non-zero and prints no result line):
    ``torch.cuda.max_memory_allocated`` above what is held before, and
    (with the kernels' times, under torch.profiler) device ms and busy
    share per batched iteration;
+6f. ``rescue_batch``: the DCS rescue's consensus rounds as one batched
+   ``lm_solve`` (``solver/batch.lm_solve_batch`` over the chains):
+   (a) float64, the first round of ``INTEL 50 1 --seed 42`` (its six
+   chains' masks as the rescue builds them from the plain solve): each
+   lane of the batched solve held to ``lm_solve`` of its chain alone
+   within ``RESCUE_F64_RTOL`` in cost and ``RESCUE_F64_POSE_ATOL`` in
+   poses, with equal iterations, accepted steps and convergence; the
+   launches of one batched iteration equal to one chain's and within
+   ``LAUNCH_LIMITS``; (b) the rounds of phases 3 and 6a (the lanes
+   and the batched iterations of each round) and their solves' wall; (c) ``INTEL 50 1 --seed 42 --linear-solver dense`` through the
+   CLI (the chains on the batched dense solver), float32: ATE below
+   ``ATE_GATE_M``, its rounds, wall and peak allocated memory; (d) the
+   first round's float32 batched solve on the Schur and the dense solver:
+   wall and launches per batched iteration, and (with the kernels'
+   times, under torch.profiler) device ms and busy share;
 7. method 2 (switchable constraints), float32:
    (a) ``method2_path``: ``INTEL 50 2 --seed 42`` through the CLI (auto
    solver = Schur with the switches eliminated), and again with
@@ -402,6 +426,11 @@ SEED_BATCH_F32_RTOL = {
     "blocked_plain": 0.532,  # 0.2658 / 0.2078
     "blocked_micro": 0.44,   # 0.2197 / (0.4889, plain panel factor)
 }
+# [rescue_batch] (a): each lane of the batched float64 solve against its
+# chain alone (the seed batch's float64 gates, from the same kind of
+# difference: one batched factorisation against another).
+RESCUE_F64_RTOL = 1e-9
+RESCUE_F64_POSE_ATOL = 1e-8
 KERNEL_INFO = {  # name: (source, TPU kernel it replaces, phase that runs it)
     "gather_rows": ("slam_tpu_torch/csrc/gather.cu",
                     "slam_tpu/ops/pallas_gather.py:56", "main_path"),
@@ -439,6 +468,10 @@ PHASE_KERNELS = {
                                  "fused_linearize_se2"),
     "seed_batch_blocked_micro": ("gather_rows", "scatter_add_rows",
                                  "fused_linearize_se2", "micro_chol_inv"),
+    "rescue_batch": ("gather_rows", "scatter_add_rows",
+                     "fused_linearize_se2"),
+    "rescue_batch_dense": ("gather_rows", "scatter_add_rows",
+                           "fused_linearize_se2"),
     **{phase: ("gather_rows", "scatter_add_rows", "fused_linearize_se2")
        for phase in (*MANAGER_PHASES, "fused_managers", "fused_vs_host",
                      "fused_m3500", "woodbury_path", "sweep", "dist_edge",
@@ -447,6 +480,9 @@ PHASE_KERNELS = {
 }
 #: What the main path and phase 11's [profile] compare.
 MAIN_RUN = {}
+#: The consensus rounds and the solve record of each run through the
+#: rescue (phases 3 and 6a), for [rescue_batch] (b).
+RESCUE_RUNS = {}
 # Launches per LM iteration of native INTEL plain DCS (phase 6d): one
 # gather per source outside the linearisation (which reads its endpoints
 # itself) and one scatter per group of sums.
@@ -632,11 +668,11 @@ def linearize_errs(what: str, got: dict, plain: dict, dtype) -> dict:
     return errs
 
 
-def check_short_solves(label: str, ss, cases: dict, dtype) -> None:
-    """Each case's LM iteration (``ss``'s configuration and plan)
-    recorded and replayed through :func:`check_launches`, its launches
-    required, and the linearisation on its masks held to the plain
-    version."""
+def check_short_solves(label: str, cfg, plan, cases: dict, dtype) -> None:
+    """Each case's LM iteration under ``cfg`` and ``plan`` (one problem's,
+    or a batch's) recorded and replayed through :func:`check_launches`,
+    its launches required, and the linearisation on its masks held to the
+    plain version."""
     from slam_tpu_torch.ops.linearize import fused_linearize_se2_indexed, \
         fused_linearize_se2_indexed_plain
     from slam_tpu_torch.tools import kernel_times as kt
@@ -645,24 +681,25 @@ def check_short_solves(label: str, ss, cases: dict, dtype) -> None:
     for kind, args in cases.items():
         what = f"{label}-{kind}"
         poses, _, edges, free = args
-        calls, counts, _ = kt.record_iteration(args, ss.cfg, ss.plan)
+        calls, counts, _ = kt.record_iteration(args, cfg, plan)
         missing = [k for k in PHASE_KERNELS["main_path"]
                    if counts.get(k, 0) <= 0]
         if missing:
             raise AssertionError(f"{what} {name}: {missing} not launched")
         scatter_err = check_launches(calls, what, name)
-        lin = (ss.cfg.dcs_phi, ss.cfg.huber_delta)
+        lin = (cfg.dcs_phi, cfg.huber_delta)
         got = fused_linearize_se2_indexed(
-            poses, free.node, edges, *lin, robust=ss.cfg.robust)
+            poses, free.node, edges, *lin, robust=cfg.robust)
         torch.cuda.synchronize()
         errs = linearize_errs(
             f"{what} {name}", got, fused_linearize_se2_indexed_plain(
                 poses, free.node, edges.ab, edges.meas, edges.loop_f,
-                edges.active, *lin, ss.cfg.robust), dtype)
-        plan = ({"dense_unknowns": 3 * poses.shape[0]}
-                if ss.cfg.linear_solver == "dense" else
-                {"plan": ss.cfg.linear_solver})
-        log("kernels", shape=what, dtype=name, **plan,
+                edges.active, *lin, cfg.robust), dtype)
+        lanes = getattr(plan, "seeds", None) or 1
+        solver = ({"dense_unknowns": 3 * poses.shape[0] // lanes}
+                  if cfg.linear_solver == "dense" else
+                  {"plan": cfg.linear_solver})
+        log("kernels", shape=what, dtype=name, lanes=lanes, **solver,
             edges=edges.num_edges, nodes=poses.shape[0],
             active_edges=int(edges.active.sum().item()),
             free_nodes=int(free.node.sum().item()),
@@ -684,7 +721,8 @@ def check_manager_shapes(device, dtype, graphs: dict,
         for method in (3, 4):
             ss, cases = short_solve_inputs(graph, method, device, name,
                                            MANAGER_KERNEL_CANDIDATES)
-            check_short_solves(f"{cell}-m{method}", ss, cases, dtype)
+            check_short_solves(f"{cell}-m{method}", ss.cfg, ss.plan, cases,
+                               dtype)
     for cell, graph in fused_graphs.items():
         ss, cases = fused_solve_inputs(graph, device, name,
                                        MANAGER_KERNEL_CANDIDATES)
@@ -692,7 +730,8 @@ def check_manager_shapes(device, dtype, graphs: dict,
                                                              "window"}:
             raise AssertionError(f"{cell} fused: {ss.cfg.linear_solver} "
                                  f"plan, cases {sorted(cases)}")
-        check_short_solves(f"{cell}-fused-m3", ss, cases, dtype)
+        check_short_solves(f"{cell}-fused-m3", ss.cfg, ss.plan, cases,
+                           dtype)
 
 
 def one_rank_mesh(axis: str, device):
@@ -1012,6 +1051,7 @@ def phase_kernels(device, peaks, timings: list) -> dict:
                 scatter_max_abs_err=check_launches(calls, label, name),
                 launches_per_run=json.dumps(counts))
 
+        chains = check_chain_batches(device, dtype)
         check_manager_shapes(device, dtype, manager_graphs, fused_graphs)
         check_phase11_shapes(device, dtype)
 
@@ -1061,29 +1101,59 @@ def phase_kernels(device, peaks, timings: list) -> dict:
                     else None))
             elif m == 128 and dtype == torch.float32:
                 timings.append(functools.partial(
-                    time_chol, A, check_folded(device, A), peaks, summary,
-                    lead=(8,)))
+                    time_chol, A, check_folded(device, A, chains), peaks,
+                    summary, lead=(8,)))
     return summary
 
 
-def check_folded(device, A) -> float:
+def check_folded(device, A, chains) -> float:
     """``micro_chol_inv_folded`` held to the plain version of the flat
-    batch: on the (8, 16, 128, 128) view of the 128 SPD panels ``A``, and
-    on the seed batch's real first and trailing panels (8 seeds x 16
-    interiors, folded over the seeds).  Returns the largest error."""
+    batch: on the (8, 16, 128, 128) view of the 128 SPD panels ``A``, on
+    the seed batch's real first and trailing panels (8 seeds x 16
+    interiors, folded over the seeds), and on those of the float32 chain
+    batch ``chains`` (6 chains x 16 interiors, under the first round's
+    masks).  Returns the largest error."""
     from slam_tpu_torch.tools.problems import intel50_seed_batch
 
     errs = [check_chol("spd128", A, "float32", "spd", lead=(8,))]
     b = intel50_seed_batch(device, torch.float32).batch
-    panels = real_panels(b.edges, b.free, b.poses0.reshape(-1, 3),
-                         b.partition)
-    log("kernels", panels="seed-batch", dtype="float32", seeds=b.seeds,
-        blocks=b.partition.num_blocks, interior_dim=panels["n"],
-        padded=panels["n_pad"])
-    for which in ("first", "trailing"):
-        errs.append(check_chol(f"seed-batch-{which}", panels[which],
-                               "float32", "residual", lead=(b.seeds,)))
+    poses, _, edges, free = chains.flat_args
+    for label, lead, args in (
+            ("seed-batch", b.seeds, (b.edges, b.free,
+                                     b.poses0.reshape(-1, 3), b.partition)),
+            ("chain-batch", chains.chains.chains,
+             (edges, free, poses, chains.chains.partition))):
+        panels = real_panels(*args)
+        log("kernels", panels=label, dtype="float32", lanes=lead,
+            blocks=args[3].num_blocks, interior_dim=panels["n"],
+            padded=panels["n_pad"])
+        for which in ("first", "trailing"):
+            errs.append(check_chol(f"{label}-{which}", panels[which],
+                                   "float32", "residual", lead=(lead,)))
     return max(errs)
+
+
+def check_chain_batches(device, dtype):
+    """Phase 2 on the rescue's chain batch (see the module docstring): one
+    batched iteration on the Schur solver (native; in float32 also blocked
+    with the kernel) and on the dense solver, through
+    :func:`check_short_solves`.  Returns the Schur case."""
+    from slam_tpu_torch.tools.problems import CONFIGS, intel50_chains
+
+    name = str(dtype).replace("torch.", "")
+    schur = intel50_chains(device, name)
+    dense = intel50_chains(device, name, "dense", masks=schur.masks)
+    cfg = schur.prob.scfg
+    runs = {"schur": cfg}
+    if dtype == torch.float32:
+        runs["blocked"] = cfg.replace(**CONFIGS["blocked_micro"])
+    for kind, c in runs.items():
+        check_short_solves("INTEL-chains", c, schur.chains.partition,
+                           {kind: schur.flat_args}, dtype)
+    check_short_solves("INTEL-chains", dense.prob.scfg,
+                       dense.chains.partition, {"dense": dense.flat_args},
+                       dtype)
+    return schur
 
 
 def run_cli_path(phase: str, run) -> tuple[dict, float, np.ndarray]:
@@ -1119,20 +1189,60 @@ def golden_ate(phase: str, poses) -> float:
     return metrics.ate(poses, golden)
 
 
-def phase_main_path() -> dict:
+@contextlib.contextmanager
+def rescue_rounds(rounds: list):
+    """Append each consensus round's batched solve of the run inside to
+    ``rounds``: each lane's iterations, as a tensor (no host read while
+    the run goes on)."""
+    from slam_tpu_torch.solver import batch
+
+    solve = batch.lm_solve_batch
+
+    def recorded(*args, **kw):
+        res = solve(*args, **kw)
+        rounds.append(res.iterations)
+        return res
+
+    batch.lm_solve_batch = recorded
+    try:
+        yield rounds
+    finally:
+        batch.lm_solve_batch = solve
+
+
+def round_fields(rounds: list) -> dict:
+    """The lanes and the batched iterations of each round."""
+    return dict(
+        rounds=len(rounds),
+        lanes_per_round=json.dumps([int(it.numel()) for it in rounds]),
+        batched_iterations=json.dumps([int(it.max()) for it in rounds]),
+        lane_iterations=json.dumps([it.tolist() for it in rounds]))
+
+
+def run_rescue_cli(phase: str, argv: list) -> tuple[dict, float, np.ndarray]:
+    """``run_cli_path`` of ``cli.main(argv + ["--save-path", DIR])`` with
+    its consensus rounds recorded into ``RESCUE_RUNS[phase]``."""
     from slam_tpu_torch import cli
 
+    rounds = []
+
     def run(save):
-        rc = cli.main(["INTEL", "50", "1", "--seed", "42", "--save-path",
-                       save])
+        with rescue_rounds(rounds):
+            rc = cli.main(argv + ["--save-path", save])
         if rc != 0:
             raise AssertionError(f"cli.main returned {rc}")
-        MAIN_RUN["solve"] = log_record(os.path.join(save, "method1.log"),
-                                       "solve")
+        RESCUE_RUNS[phase] = {"rounds": rounds, "solve": log_record(
+            os.path.join(save, "method1.log"), "solve")}
 
-    counts, wall, poses = run_cli_path("main_path", run)
+    return run_cli_path(phase, run)
+
+
+def phase_main_path() -> dict:
+    counts, wall, poses = run_rescue_cli(
+        "main_path", ["INTEL", "50", "1", "--seed", "42"])
     ate = golden_ate("main_path", poses)
-    MAIN_RUN.update(poses=poses, ate=ate, launches=counts)
+    MAIN_RUN.update(poses=poses, ate=ate, launches=counts,
+                    solve=RESCUE_RUNS["main_path"]["solve"])
     log("main_path", wall_s=round(wall, 3), ate_vs_golden_m=ate,
         launches=json.dumps(counts))
     if not ate < ATE_GATE_M:
@@ -1245,12 +1355,17 @@ def phase_blocked(device, smi: str) -> dict:
         m10000
 
     # (a) the blocked configuration through the pipeline, rescue on.
+    rounds = []
+
     def run(save):
-        run_from_config(RunConfig(
-            dataset="INTEL", num_outliers=50, method=1, seed=42,
-            save_path=save, solver=SolverConfig(
-                dtype="float32", **CONFIGS["blocked_micro"])),
-            device=device)
+        with rescue_rounds(rounds):
+            run_from_config(RunConfig(
+                dataset="INTEL", num_outliers=50, method=1, seed=42,
+                save_path=save, solver=SolverConfig(
+                    dtype="float32", **CONFIGS["blocked_micro"])),
+                device=device)
+        RESCUE_RUNS["blocked_path"] = {"rounds": rounds, "solve": log_record(
+            os.path.join(save, "method1.log"), "solve")}
 
     path_counts, wall, poses = run_cli_path("blocked_path", run)
     ate = golden_ate("blocked_path", poses)
@@ -1339,19 +1454,19 @@ def timed_alone(case, cfg, iters: int) -> tuple:
             torch.cuda.max_memory_allocated() - held)
 
 
-def batch_device_ms(case, cfg, wall_ms: float) -> dict:
+def batch_device_ms(run, wall_ms: float) -> dict:
     """Device ms and busy share per batched iteration: the kernels'
-    device events under torch.profiler over ``SEED_BATCH_PROFILE_ITERS``
-    iterations, against the unprofiled wall per iteration."""
+    device events under torch.profiler over ``run(n)``, ``n =
+    SEED_BATCH_PROFILE_ITERS`` batched iterations, against the unprofiled
+    wall per iteration."""
     from torch.profiler import ProfilerActivity, profile
 
-    from slam_tpu_torch.solver.batch import lm_fixed_iters_batch
     from slam_tpu_torch.tools.profile_lm import device_us
 
-    b, n = case.batch, SEED_BATCH_PROFILE_ITERS
+    n = SEED_BATCH_PROFILE_ITERS
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        lm_fixed_iters_batch(*b.args, cfg, n, partition=b.partition)
+        run(n)
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if device_us(e) > 0]
     dev = sum(device_us(e) for e in events) / 1e3 / n
@@ -1469,11 +1584,164 @@ def phase_seed_batch(device, smi: str, timings: list) -> dict:
     def device_times():  # profiled in the report, after every other time
         for name, kw in CONFIGS.items():
             log("seed_batch", config=name, **batch_device_ms(
-                case, case.cfg.replace(**kw), walls_ms[name]),
+                lambda n, cfg=case.cfg.replace(**kw): lm_fixed_iters_batch(
+                    *b.args, cfg, n, partition=part), walls_ms[name]),
                 wall_ms_per_iter=walls_ms[name], card=json.dumps(smi))
 
     timings.append(lambda: ([], [], device_times))
     return out
+
+
+def iteration_launches(run) -> dict:
+    """Kernel launches of one LM iteration: those of ``run(2)`` (two
+    iterations) less those of ``run(1)``."""
+    from slam_tpu_torch import ops
+
+    counts = []
+    for n in (1, 2):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        run(n)
+        torch.cuda.synchronize()
+        counts.append(ops.launch_counts())
+    return {k: counts[1][k] - counts[0][k] for k in counts[0]}
+
+
+def phase_rescue_batch(device, smi: str, timings: list) -> dict:
+    """Phase 6f; returns the launch counts of the float64 batched solve of
+    (a) and of the dense CLI run of (c).  The device times of (d) are
+    appended to ``timings`` (profiler last)."""
+    from slam_tpu_torch import ops
+    from slam_tpu_torch.solver.batch import lane, lm_solve_batch
+    from slam_tpu_torch.solver.lm import lm_solve
+    from slam_tpu_torch.tools.problems import intel50_chains
+
+    # (a) float64: the first round, each lane against its chain alone.
+    t0 = time.perf_counter()
+    case = intel50_chains(device, "float64")
+    prob, ch = case.prob, case.chains
+    cfg, part = prob.scfg, ch.partition
+    setup = time.perf_counter() - t0
+    lm_solve_batch(*case.args, cfg.replace(max_iterations=2), part)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = lm_solve_batch(*case.args, cfg, part)
+    iters = res.iterations.tolist()  # synchronises
+    batch_wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    rel, dp, same, alone_wall = [], [], [], 0.0
+    for c in range(ch.chains):
+        es = prob.edges._replace(active=torch.as_tensor(
+            case.masks[c], dtype=prob.poses0.dtype, device=device))
+        t0 = time.perf_counter()
+        r = lm_solve(prob.poses0, prob.switches0, es, prob.free, cfg,
+                     partition=prob.partition)
+        cost = float(r.cost)  # synchronises
+        alone_wall += time.perf_counter() - t0
+        got = lane(res, c)
+        rel.append(abs(float(got.cost) - cost) / abs(cost))
+        dp.append(float((got.poses - r.poses).abs().max()))
+        same.append([int(got.iterations), int(got.accepted),
+                     bool(got.converged)] == [int(r.iterations),
+                                              int(r.accepted),
+                                              bool(r.converged)])
+    per_batch = iteration_launches(lambda n: lm_solve_batch(
+        *case.args, cfg.replace(max_iterations=n), part))
+    per_chain = iteration_launches(lambda n: lm_solve(
+        prob.poses0, prob.switches0, es, prob.free,
+        cfg.replace(max_iterations=n), partition=prob.partition))
+    log("rescue_batch", dtype="float64", chains=ch.chains,
+        edges=ch.edges.num_edges, nodes=ch.edges.num_nodes,
+        interiors=part.num_blocks, separators=part.seeds,
+        setup_s=round(setup, 3), lane_iterations=json.dumps(iters),
+        accepted=json.dumps(res.accepted.tolist()),
+        converged=json.dumps(res.converged.tolist()),
+        batch_wall_s=round(batch_wall, 4),
+        chains_alone_wall_s=round(alone_wall, 4),
+        rel_diff=json.dumps(rel), pose_diff_m=json.dumps(dp),
+        same_counts=json.dumps(same), gate_rel=RESCUE_F64_RTOL,
+        gate_pose_m=RESCUE_F64_POSE_ATOL,
+        launches_per_batched_iter=json.dumps(per_batch),
+        launches_per_chain_iter=json.dumps(per_chain), card=json.dumps(smi))
+    if not (all(same) and max(rel) <= RESCUE_F64_RTOL
+            and max(dp) <= RESCUE_F64_POSE_ATOL):
+        raise AssertionError(f"rescue_batch: lanes vs chains alone: counts "
+                             f"equal {same}, rel {max(rel)}, poses "
+                             f"{max(dp)} m")
+    over = {k: v for k, v in per_batch.items()
+            if v > LAUNCH_LIMITS.get(k, float("inf"))}
+    if per_batch != per_chain or over:
+        raise AssertionError(f"rescue_batch: launches per batched iteration "
+                             f"{per_batch}, per chain {per_chain}, limits "
+                             f"{LAUNCH_LIMITS}")
+    require_launches("rescue_batch", counts)
+
+    # (b) the rounds of the runs through the rescue.
+    for phase in ("main_path", "blocked_path"):
+        run = RESCUE_RUNS[phase]
+        log("rescue_batch", run=phase, **round_fields(run["rounds"]),
+            solve_wall_s=run["solve"]["wall_s"],
+            final_cost=run["solve"]["final_cost"], card=json.dumps(smi))
+
+    # (c) the chains on the batched dense solver, through the CLI.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    dense_counts, wall, poses = run_rescue_cli(
+        "rescue_batch_dense", ["INTEL", "50", "1", "--seed", "42",
+                               "--linear-solver", "dense"])
+    peak = torch.cuda.max_memory_allocated()
+    ate = golden_ate("rescue_batch_dense", poses)
+    run = RESCUE_RUNS["rescue_batch_dense"]
+    log("rescue_batch", run="dense_cli", wall_s=round(wall, 3),
+        solve_wall_s=run["solve"]["wall_s"],
+        final_cost=run["solve"]["final_cost"], ate_vs_golden_m=ate,
+        peak_allocated_bytes=peak, peak_above_held_bytes=peak - held,
+        **round_fields(run["rounds"]), launches=json.dumps(dense_counts),
+        card=json.dumps(smi))
+    if not ate < ATE_GATE_M:
+        raise AssertionError(f"dense CLI ATE {ate} m >= {ATE_GATE_M} m")
+    if not run["rounds"]:
+        raise AssertionError("dense CLI: no batched consensus round")
+    require_launches("rescue_batch_dense", dense_counts)
+
+    # (d) float32: the first round's batched solve on the Schur and the
+    # dense solver, its wall and launches per batched iteration; its
+    # device time and busy share under the profiler, after every other
+    # time.
+    schur = intel50_chains(device, "float32")
+    cases = {"schur": schur, "dense": intel50_chains(
+        device, "float32", "dense", masks=schur.masks)}
+    walls_ms = {}
+    for name, c in cases.items():
+        cfg, part = c.prob.scfg, c.chains.partition
+        lm_solve_batch(*c.args, cfg.replace(max_iterations=2), part)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = lm_solve_batch(*c.args, cfg, part)
+        n = int(res.iterations.max())  # synchronises
+        wall = time.perf_counter() - t0
+        walls_ms[name] = wall * 1e3 / n
+        log("rescue_batch", dtype="float32", solver=name,
+            lane_iterations=json.dumps(res.iterations.tolist()),
+            batched_iterations=n, wall_s=round(wall, 4),
+            ms_per_batched_iter=round(walls_ms[name], 4),
+            launches_per_batched_iter=json.dumps(
+                {k: v / n for k, v in ops.launch_counts().items()}),
+            card=json.dumps(smi))
+
+    def device_times():  # profiled in the report, after every other time
+        for name, c in cases.items():
+            log("rescue_batch", dtype="float32", solver=name,
+                **batch_device_ms(lambda n, c=c: lm_solve_batch(
+                    *c.args, c.prob.scfg.replace(max_iterations=n),
+                    c.chains.partition), walls_ms[name]),
+                wall_ms_per_iter=walls_ms[name], card=json.dumps(smi))
+
+    timings.append(lambda: ([], [], device_times))
+    return {"rescue_batch": counts, "rescue_batch_dense": dense_counts}
 
 
 def reference(key: str) -> dict:
@@ -2564,6 +2832,7 @@ def main() -> int:
         ("scale", lambda: phase_scale(device, smi)),
         ("blocked", lambda: phase_blocked(device, smi)),
         ("seed_batch", lambda: phase_seed_batch(device, smi, timings)),
+        ("rescue_batch", lambda: phase_rescue_batch(device, smi, timings)),
         ("method2_path", lambda: phase_method2_path(smi)),
         ("method2_dense", lambda: phase_method2_dense(device, smi)),
         ("method2_ab", lambda: phase_method2_ab(device, smi)),
@@ -2593,6 +2862,7 @@ def main() -> int:
 
     launches = {"main_path": out["main_path"],
                 "blocked_path": out["blocked"], **out["seed_batch"],
+                **out["rescue_batch"],
                 **out["method2_path"],
                 "method2_dense": out["method2_dense"],
                 "method2_ab": out["method2_ab"], **out["pcg"],

@@ -8,6 +8,13 @@ on request); write ``opt_*`` and, for method 2, ``switches.txt``.  Host
 work (ingestion, init, masks, the rescue's random half-subsets) stays in
 NumPy; the solves run on the chosen device.
 
+Each consensus round of the rescue is one batched ``lm_solve`` over the
+chains (``batch.lm_solve_batch`` on a ``batch.chain_batch`` built once per
+run) and one ``loop_psi`` of every chain's poses, as the JAX package's
+``_chain_solve_batch`` runs ``jax.vmap(lm_solve)``; on the PCG and
+Woodbury solvers, which have no batch yet (ROADMAP A19a, A19b), the
+chains are solved one after another.
+
 Dropped TPU workarounds: incidence selection and chain compression, the
 program-sharing ``rescue_ready`` lanes (the plain solve runs first, then
 the chains -- identical results), the accelerator switch to the blocked
@@ -29,7 +36,7 @@ from slam_tpu_torch.config import METHOD_SC, RunConfig, SolverConfig, \
     solver_config_for_method
 from slam_tpu_torch.graph import PoseGraph
 from slam_tpu_torch.io import g2o
-from slam_tpu_torch.solver import linear
+from slam_tpu_torch.solver import batch, linear
 from slam_tpu_torch.solver.linearize import cost_only, loop_psi
 from slam_tpu_torch.solver.lm import LMResult, lm_solve
 from slam_tpu_torch.solver.models import model_for_dim
@@ -39,17 +46,38 @@ from slam_tpu_torch.utils.logging import RunLogger
 
 
 def _psi_probe(poses, edges, cfg, model) -> np.ndarray:
-    """Per-edge DCS psi at ``poses`` -- the rescue trigger probe."""
-    return loop_psi(poses, edges, model, cfg.dcs_phi).cpu().numpy()
+    """Per-edge DCS psi at ``poses`` -- the rescue trigger probe; of
+    ``(C, N, D)`` poses on C copies of the edges, ``(C, E)``."""
+    psi = loop_psi(poses.reshape(-1, poses.shape[-1]), edges, model,
+                   cfg.dcs_phi)
+    return psi.reshape(poses.shape[:-2] + (-1,)).cpu().numpy()
 
 
 def _batched_full_cost(results, edges, cfg, model) -> np.ndarray:
-    """Common full DCS objective (every live edge) of each candidate."""
-    costs = [cost_only(r.poses, r.switches, edges, model=model, robust="dcs",
-                       dcs_phi=cfg.dcs_phi, huber_delta=cfg.huber_delta,
-                       sc_prior_lambda=cfg.sc_prior_lambda)
-             for r in results]
-    return torch.stack(costs).cpu().numpy()
+    """Common full DCS objective (every live edge) of each candidate, in
+    one ``cost_only`` over the candidates stacked."""
+    return cost_only(torch.cat([r.poses for r in results]),
+                     torch.cat([r.switches for r in results]),
+                     batch.stack_edges(edges, len(results)), model=model,
+                     robust="dcs", dcs_phi=cfg.dcs_phi,
+                     huber_delta=cfg.huber_delta,
+                     sc_prior_lambda=cfg.sc_prior_lambda,
+                     seeds=len(results)).cpu().numpy()
+
+
+def first_chain_masks(psi_plain, live_loop, base_active, chains: int,
+                      seed: int, cut: float) -> np.ndarray:
+    """The consensus chains' first loop masks, ``(chains, E)``: chain 0
+    trims from the full loop set by the plain solve's psi; chains 1+ start
+    from seeded random half-subsets (the RANSAC move)."""
+    rng = np.random.default_rng(seed)
+    first = [np.where(live_loop > 0,
+                      (psi_plain > cut).astype(base_active.dtype), 1.0)]
+    for _ in range(1, chains):
+        sub = rng.random(base_active.shape) < 0.5
+        first.append(np.where((live_loop > 0) & ~sub, 0.0,
+                              1.0).astype(base_active.dtype))
+    return np.stack(first)
 
 
 @dataclasses.dataclass
@@ -182,37 +210,45 @@ def run_global_solve(
 
         if (scfg.dcs_consensus
                 and drop_frac > scfg.dcs_consensus_drop_frac):
-            # Chain 0 trims from the full loop set by the plain solve's
-            # psi; chains 1+ start from seeded random half-subsets (the
-            # RANSAC move).  Each round re-solves from the original init
+            # Each round re-solves from the original init
             # and re-admits loops whose psi clears the cut, until every
-            # chain's mask is a fixed point.  A frozen chain keeps its
-            # result: re-solving its mask would give the same bits.
-            rng = np.random.default_rng(cfg.seed)
+            # chain's mask is a fixed point.  A frozen chain keeps its mask;
+            # in the batch it is re-solved every round, as the JAX
+            # package's vmap re-solves it (each lane's bits are its own, so
+            # the re-solve repeats its result).
             C = max(1, scfg.dcs_consensus_chains)
-            first = [np.where(live_loop > 0,
-                              (psi_plain > cut).astype(base_active.dtype),
-                              1.0)]
-            for _ in range(1, C):
-                sub = rng.random(base_active.shape) < 0.5
-                first.append(np.where((live_loop > 0) & ~sub, 0.0,
-                                      1.0).astype(base_active.dtype))
-            cur = np.stack(first)
+            cur = first_chain_masks(psi_plain, live_loop, base_active, C,
+                                    cfg.seed, cut)
             fixed = np.zeros(C, dtype=bool)
             chain_res: list = [None] * C
+            # PCG and Woodbury have no batched solver yet (ROADMAP A19a,
+            # A19b): their chains are solved one after another.
+            looped = scfg.linear_solver in ("pcg", "woodbury")
+            if not looped:
+                chains = batch.chain_batch(prob.poses0, prob.switches0, edges,
+                                           prob.free, scfg, prob.partition, C)
             for _ in range(scfg.dcs_consensus_rounds):
                 rounds_run += 1
-                for c in range(C):
-                    if fixed[c]:
-                        continue
-                    mask = torch.as_tensor(cur[c] * base_active,
-                                           dtype=dtype, device=dev)
-                    chain_res[c] = solve(edges._replace(active=mask), scfg)
-                    psi_c = _psi_probe(chain_res[c].poses, edges, scfg,
-                                       model)
+                masks = cur * base_active
+                if looped:
+                    psi = np.zeros_like(cur)
+                    for c in np.flatnonzero(~fixed):
+                        chain_res[c] = solve(edges._replace(
+                            active=torch.as_tensor(masks[c], dtype=dtype,
+                                                   device=dev)), scfg)
+                        psi[c] = _psi_probe(chain_res[c].poses, edges, scfg,
+                                            model)
+                else:
+                    res_b = batch.lm_solve_batch(
+                        chains.poses0, chains.switches0,
+                        chains.masked(masks), chains.free, scfg,
+                        chains.partition)
+                    psi = _psi_probe(res_b.poses, chains.edges, scfg, model)
+                    chain_res = [batch.lane(res_b, c) for c in range(C)]
+                for c in np.flatnonzero(~fixed):
                     new_mask = np.where(
                         live_loop > 0,
-                        (psi_c > cut).astype(base_active.dtype), 1.0)
+                        (psi[c] > cut).astype(base_active.dtype), 1.0)
                     if (new_mask == cur[c]).all():
                         fixed[c] = True
                     else:

@@ -1,29 +1,37 @@
-"""B seeds' problems in one LM solve: the per-seed batch.
+"""B problems in one LM solve: the per-seed batch and the chain batch.
 
-Port of the JAX package's batched Schur solve (``bench.py``,
-``scripts/bench_variants.py``): B seeds' problems of one dataset share
-padded shapes, are stacked (``jax.tree.map(jnp.stack)``) and run as one
-``jax.vmap(lm_fixed_iters)``.  Here stacking is concatenation:
+Port of the JAX package's batched solves: B seeds' problems of one dataset
+(``bench.py``, ``scripts/bench_variants.py``), stacked
+(``jax.tree.map(jnp.stack)``) and run as one ``jax.vmap(lm_fixed_iters)``;
+and the DCS rescue's consensus round (``_chain_solve_batch`` in
+``slam_tpu/methods/global_solve.py``), ``jax.vmap(lm_solve)`` over C
+chains' active masks of one problem.  Here stacking is concatenation:
 
-- the edge set is one :class:`EdgeSet` of B*E edges over B*N nodes, seed
-  b's edges at ``[b*E, (b+1)*E)`` with endpoints offset by ``b*N``, each
-  seed's edges padded to E with inactive ones;
-- the free mask is each seed's, stacked;
-- the partition holds each seed's (``build_slots(pad_shapes=...)``, the
-  maxima of ``partition_stats``) as B*P interior blocks and B separators
-  of ``D*ns`` (``schur.partition_from_slots(seeds=B)``), not the
-  partition of the disjoint union, whose one separator of ``B*D*ns``
-  would cost B^2 times the factor work.
+- the edge set is one :class:`EdgeSet` of B*E edges over B*N nodes,
+  problem b's edges at ``[b*E, (b+1)*E)`` with endpoints offset by
+  ``b*N``, each seed's edges padded to E with inactive ones
+  (:func:`seed_batch`), or C copies of one edge set that differ only in
+  ``active`` (:func:`chain_batch`; a round sets the masks with
+  ``edges._replace(active=...)``, so no plan is rebuilt);
+- the free mask is each problem's, stacked;
+- the Schur partition holds each problem's (``build_slots(pad_shapes=...)``,
+  the maxima of ``partition_stats``, for seeds) as B*P interior blocks
+  and B separators of ``D*ns`` (``schur.partition_from_slots(seeds=B)``),
+  not the partition of the disjoint union, whose one separator of
+  ``B*D*ns`` would cost B^2 times the factor work;
+- the dense plan (``linear.dense_plan(seeds=B)``) puts each problem's
+  pose-only system in its own matrix of a ``(B, D*N, D*N)`` stack.
 
-:func:`lm_fixed_iters_batch` runs every seed's LM with its own damping,
-acceptance and cost, as the ``vmap`` does (``lm_fixed_iters`` reads the
-seed axis from the partition), and each kernel launch of an iteration
-serves all B seeds: one linearisation over the B*E edges, the
-gathers and grouped scatters of one seed's iteration, and on the blocked
+:func:`lm_fixed_iters_batch` and :func:`lm_solve_batch` run every problem's
+LM with its own damping, acceptance and cost, as the ``vmap`` does
+(``lm_fixed_iters`` and ``lm_solve`` read the seed axis from the plan;
+``lm_solve`` stops each at its own convergence), and each kernel launch of
+an iteration serves all B problems: one linearisation over the B*E edges,
+the gathers and scatters of one problem's iteration, and on the blocked
 path one ``micro_chol_inv`` launch per diagonal panel for the B*P
-interiors (``micro_chol_inv_folded``).  A single problem's arithmetic
-is unchanged.  The batch takes the Schur solver with ``robust`` none, dcs
-or sc_varpro; the other solvers and joint SC raise, naming the
+interiors (``micro_chol_inv_folded``).  A single problem's arithmetic is
+unchanged.  The batch takes the Schur and the dense solver with ``robust``
+none, dcs or sc_varpro; PCG, Woodbury and joint SC raise, naming the
 ``ROADMAP.md`` item that ports them.
 """
 
@@ -37,8 +45,8 @@ import torch
 from slam_tpu_torch.config import SolverConfig
 from slam_tpu_torch.graph import PoseGraph
 from slam_tpu_torch.runtime import require_type
-from slam_tpu_torch.solver import schur
-from slam_tpu_torch.solver.lm import LMResult, lm_fixed_iters
+from slam_tpu_torch.solver import linear, schur
+from slam_tpu_torch.solver.lm import LMResult, lm_fixed_iters, lm_solve
 from slam_tpu_torch.solver.problem import EdgeSet, FreeMask, \
     edge_set_from_arrays, padded_edge_arrays
 
@@ -49,7 +57,6 @@ NOT_BATCHED = {
     "pcg": "A19a (the batched PCG, scripts/bench_pcg.py)",
     "woodbury": "A19b (the batched Woodbury solver, "
                 "scripts/bench_woodbury.py)",
-    "dense": "A19c (the batched dense solver)",
     "sc": "A19d (joint switchable constraints in the batch)",
 }
 
@@ -143,32 +150,94 @@ def seed_batch(graphs: Sequence[PoseGraph], num_blocks: int,
         pad_shapes=pad)
 
 
-def _check_batchable(cfg: SolverConfig, partition) -> None:
-    """Raise for what the seed batch does not take."""
+def stack_edges(edges: EdgeSet, copies: int) -> EdgeSet:
+    """``copies`` copies of ``edges`` as one edge set of ``copies*E`` edges
+    over ``copies*N`` nodes, copy k's endpoints offset by ``k*N``."""
+    N = edges.num_nodes
+
+    def tile(t):
+        a = t.cpu().numpy()
+        return np.tile(a, (copies,) + (1,) * (a.ndim - 1))
+
+    ij = edges.ij.cpu().numpy().astype(np.int64)
+    return edge_set_from_arrays(
+        ij=(ij[None] + N * np.arange(copies)[:, None, None]).reshape(-1, 2),
+        meas=tile(edges.meas), is_loop=tile(edges.loop_f) != 0,
+        active=tile(edges.active), info=tile(edges.info),
+        num_nodes=copies * N, dtype=edges.meas.dtype,
+        device=edges.meas.device)
+
+
+class ChainBatch(NamedTuple):
+    """C copies of one problem for :func:`lm_solve_batch`, which differ
+    only in their ``active`` masks (the DCS rescue's chains)."""
+
+    poses0: Tensor        # (C, N, D) the problem's initial poses, C times
+    switches0: Tensor     # (C, E)
+    edges: EdgeSet        # C*E edges over C*N nodes, the problem's masks
+    free: FreeMask        # (C*N,)
+    partition: object     # SchurPartition or linear.DenseBatchPlan, seeds=C
+
+    @property
+    def chains(self) -> int:
+        return self.poses0.shape[0]
+
+    def masked(self, masks) -> EdgeSet:
+        """The edge set with chain c's edges under ``masks[c]`` (C, E)."""
+        return self.edges._replace(active=torch.as_tensor(
+            masks, dtype=self.edges.active.dtype,
+            device=self.edges.active.device).reshape(-1))
+
+
+def chain_batch(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
+                free: FreeMask, cfg: SolverConfig, partition,
+                chains: int) -> ChainBatch:
+    """``chains`` copies of one problem and its plan (the problem's Schur
+    partition stacked, or the dense batch plan), built once for every
+    round of a rescue."""
+    _check_solver(cfg)
+    C = chains
+    es = stack_edges(edges, C)
+    if cfg.linear_solver == "schur":
+        plan = schur.partition_from_slots(
+            stack_slots([partition.slots] * C), dtype=poses0.dtype,
+            device=poses0.device, seeds=C)
+    else:
+        plan = linear.dense_plan(es, seeds=C)
+    return ChainBatch(
+        poses0=poses0.unsqueeze(0).repeat(C, 1, 1),
+        switches0=switches0.unsqueeze(0).repeat(C, 1),
+        edges=es, free=FreeMask(node=free.node.repeat(C)), partition=plan)
+
+
+def lane(res: LMResult, k: int) -> LMResult:
+    """Problem ``k``'s result of a batched solve."""
+    return type(res)(*(v[k] if isinstance(v, Tensor) else v for v in res))
+
+
+def _check_solver(cfg: SolverConfig) -> None:
+    """Raise for a solver or robust mode that the batch does not take."""
     require_type(cfg, SolverConfig, "cfg")
     for what in (cfg.linear_solver, cfg.robust):
         if what in NOT_BATCHED:
             raise NotImplementedError(
                 f"the seed batch does not take {what!r} yet: ROADMAP "
                 f"{NOT_BATCHED[what]}")
-    if cfg.linear_solver != "schur":
+    if cfg.linear_solver not in ("schur", "dense"):
         raise ValueError(f"unknown linear solver {cfg.linear_solver!r}")
-    if not isinstance(partition, schur.SchurPartition) \
-            or partition.seeds is None:
+
+
+def _flat(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
+          cfg: SolverConfig, partition) -> tuple:
+    """Check a batch's inputs; returns ``(B, N, D, E)``."""
+    _check_solver(cfg)
+    plan = {"schur": schur.SchurPartition,
+            "dense": linear.DenseBatchPlan}[cfg.linear_solver]
+    if not isinstance(partition, plan) or partition.seeds is None:
         raise ValueError("the seed batch needs its stacked partition "
-                         "(seed_batch(...).partition)")
-
-
-def lm_fixed_iters_batch(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
-                         free: FreeMask, cfg: SolverConfig, num_iters: int,
-                         partition: schur.SchurPartition) -> LMResult:
-    """Exactly ``num_iters`` LM iterations of each of B seeds, no host
-    read inside: ``lm_fixed_iters`` on the batch's flat problem, which
-    runs every seed as ``jax.vmap(lm_fixed_iters)`` does.  ``poses0`` is
-    ``(B, N, D)``, ``switches0`` ``(B, E)``; the result's poses are
-    ``(B, N, D)``, switches ``(B, E)``, and cost, initial cost, accepted
-    steps, lambda and nu ``(B,)``."""
-    _check_batchable(cfg, partition)
+                         "(seed_batch(...).partition, "
+                         "chain_batch(...).partition or "
+                         "linear.dense_plan(edges, seeds=B))")
     B, N, dim = poses0.shape
     E = switches0.shape[-1]
     if partition.seeds != B or edges.num_nodes != B * N \
@@ -177,8 +246,39 @@ def lm_fixed_iters_batch(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
                          f"match the edge set ({edges.num_nodes} nodes, "
                          f"{edges.num_edges} edges) and the partition's "
                          f"{partition.seeds} seeds")
+    return B, N, dim, E
+
+
+def _stacked(res: LMResult, B: int, N: int, dim: int, E: int) -> LMResult:
+    return res._replace(poses=res.poses.reshape(B, N, dim),
+                        switches=res.switches.reshape(B, E))
+
+
+def lm_fixed_iters_batch(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
+                         free: FreeMask, cfg: SolverConfig, num_iters: int,
+                         partition) -> LMResult:
+    """Exactly ``num_iters`` LM iterations of each of B seeds, no host
+    read inside: ``lm_fixed_iters`` on the batch's flat problem, which
+    runs every seed as ``jax.vmap(lm_fixed_iters)`` does.  ``poses0`` is
+    ``(B, N, D)``, ``switches0`` ``(B, E)``; the result's poses are
+    ``(B, N, D)``, switches ``(B, E)``, and cost, initial cost, accepted
+    steps, lambda and nu ``(B,)``."""
+    B, N, dim, E = _flat(poses0, switches0, edges, cfg, partition)
     res = lm_fixed_iters(poses0.reshape(B * N, dim),
                          switches0.reshape(B * E), edges, free, cfg,
                          num_iters, partition=partition)
-    return res._replace(poses=res.poses.reshape(B, N, dim),
-                        switches=res.switches.reshape(B, E))
+    return _stacked(res, B, N, dim, E)
+
+
+def lm_solve_batch(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
+                   free: FreeMask, cfg: SolverConfig,
+                   partition) -> LMResult:
+    """LM to each problem's own convergence (or ``cfg.max_iterations``):
+    ``lm_solve`` on the batch's flat problem, which runs every problem as
+    ``jax.vmap(lm_solve)`` does, with one host read an iteration (whether
+    any is still running).  Shapes as :func:`lm_fixed_iters_batch`, and
+    iterations, accepted steps and ``converged`` ``(B,)``."""
+    B, N, dim, E = _flat(poses0, switches0, edges, cfg, partition)
+    res = lm_solve(poses0.reshape(B * N, dim), switches0.reshape(B * E),
+                   edges, free, cfg, partition=partition)
+    return _stacked(res, B, N, dim, E)

@@ -9,7 +9,11 @@ method 2's joint system (``robust="sc"``) and solve to 0 otherwise.
   ``scatter_add_rows`` launch over a block grid (the plan is built once
   per graph by :func:`dense_plan`), Jacobi-equilibrated and
   Cholesky-factored.  With the switches it is the joint system: one
-  unknown per edge after the node-major pose unknowns.
+  unknown per edge after the node-major pose unknowns.  On a batch of B
+  problems (:class:`DenseBatchPlan`, ``solver/batch.py``) each problem's
+  pose-only system is its own matrix of a ``(B, D*n, D*n)`` stack, all
+  assembled by one launch and factored by one batched Cholesky, as
+  ``jax.vmap`` of the JAX ``dense_solve`` factors each.
 - ``eliminate_switches``: the exact elimination of the diagonal switch
   block, so that method 2 rides the pose-only Schur solver; its per-node
   corrections are one grouped ``scatter_add_rows`` launch.
@@ -45,20 +49,33 @@ class Update(NamedTuple):
     switches: Tensor  # (E,)
 
 
-def damped_diag(system: BlockSystem, lam: Tensor) -> tuple[Tensor, Tensor]:
-    """LM-damped diagonal blocks ``Hdiag + lam * clip(diag(Hdiag))`` and the
-    damped switch diagonal."""
+def damped_blocks(system: BlockSystem, lam: Tensor) -> Tensor:
+    """LM-damped diagonal blocks ``Hdiag + lam * clip(diag(Hdiag))``; ``lam``
+    is a scalar, or one per node in a batch."""
     d = torch.diagonal(system.Hdiag, dim1=-2, dim2=-1)
-    damp = lam * torch.clamp(d, _DIAG_MIN, _DIAG_MAX)
-    Hd = system.Hdiag + torch.diag_embed(damp)
+    return system.Hdiag + torch.diag_embed(
+        lam * torch.clamp(d, _DIAG_MIN, _DIAG_MAX))
+
+
+def damped_diag(system: BlockSystem, lam: Tensor) -> tuple[Tensor, Tensor]:
+    """LM-damped diagonal blocks (:func:`damped_blocks`) and the damped
+    switch diagonal."""
     Hss = system.Hss + lam * torch.clamp(system.Hss, _DIAG_MIN, _DIAG_MAX)
-    return Hd, Hss
+    return damped_blocks(system, lam), Hss
 
 
-def nan_unless_factored(x: Tensor, info: Tensor) -> Tensor:
+def nan_unless_factored(x: Tensor, info: Tensor,
+                        seeds: int | None = None) -> Tensor:
     """NaN where a Cholesky failed, as JAX's ``cho_factor`` reports it, so
-    the LM loop rejects the step; checked without a host sync."""
-    return torch.where(torch.all(info == 0), x, torch.full_like(x, np.nan))
+    the LM loop rejects the step; checked without a host sync.  With
+    ``seeds=B``, ``x`` and ``info`` hold B problems' entries in turn along
+    their first axis, and only the problems whose factor failed get NaN."""
+    if seeds is None:
+        return torch.where(torch.all(info == 0), x,
+                           torch.full_like(x, np.nan))
+    ok = (info.reshape(seeds, -1) == 0).all(-1)[:, None]
+    per = x.reshape(seeds, -1)
+    return torch.where(ok, per, torch.full_like(per, np.nan)).reshape(x.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -75,17 +92,44 @@ class JointPlan(NamedTuple):
     row_sel: Tensor
 
 
-def dense_plan(edges: EdgeSet, switches: bool = False):
+class DenseBatchPlan(NamedTuple):
+    """Dense assembly of B problems' pose-only systems: ``plan`` places
+    each problem's D x D blocks in its own ``m x m`` block grid of a
+    ``(B, m, m)`` stack, ``m = n / B`` (segment ``(lane * m + row) * m +
+    col``)."""
+
+    plan: SegmentPlan
+    seeds: int
+
+
+def dense_plan(edges: EdgeSet, switches: bool = False,
+               seeds: int | None = None):
     """Scatter plan of ``[Hd (n), Hoff (E), Hoff^T (E)]`` blocks into the
     ``n x n`` grid of D x D blocks (segment ``row * n + col``) of the
     ``(n*D, n*D)`` matrix; with ``switches`` a :class:`JointPlan` that
     also places, per edge, its switch diagonal and its couplings to both
-    endpoints (a self-loop's two couplings add)."""
+    endpoints (a self-loop's two couplings add).  ``seeds=B`` reads the
+    edges as B problems of ``n / B`` nodes each, every edge inside one
+    (``solver/batch.py``), and returns a :class:`DenseBatchPlan`."""
     n, E, D = edges.num_nodes, edges.num_edges, edges.tangent_dim
     ij = edges.ij.cpu().numpy().astype(np.int64)
     a, b = ij[:, 0], ij[:, 1]
     nodes = np.arange(n)
     dev = edges.ij.device
+    if seeds is not None:
+        if switches:
+            raise NotImplementedError(
+                "the batch does not take the joint dense plan yet: ROADMAP "
+                "A19d (joint switchable constraints in the batch)")
+        m = n // seeds
+        if m * seeds != n or np.any(a // m != b // m):
+            raise ValueError(f"{E} edges over {n} nodes are not {seeds} "
+                             "problems of the same size")
+        # Node g = lane * m + row lands at (lane * m + row) * m + g % m.
+        idx = np.concatenate([nodes * m + nodes % m, a * m + b % m,
+                              b * m + a % m])
+        return DenseBatchPlan(segment_plan(idx, n * m, device=dev,
+                                           grid=((seeds,), m, m)), seeds)
     if not switches:
         idx = np.concatenate([nodes * n + nodes, a * n + b, b * n + a])
         return segment_plan(idx, n * n, device=dev, grid=((), n, n))
@@ -102,29 +146,46 @@ def dense_plan(edges: EdgeSet, switches: bool = False):
 
 def _finish_dense(H: Tensor, rhs: Tensor, n: int, D: int, E: int,
                   switches: bool) -> Update:
+    """Solve ``H x = rhs``, or each system of a ``(B, D*n, D*n)`` stack
+    (``n`` nodes a problem); a failed factor gives NaN in its own problem
+    only."""
     # Jacobi equilibration improves f32 conditioning markedly.
-    dscale = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(H), min=1e-12))
-    Hs = H * dscale[:, None] * dscale[None, :]
+    dscale = 1.0 / torch.sqrt(torch.clamp(
+        torch.diagonal(H, dim1=-2, dim2=-1), min=1e-12))
+    Hs = H * dscale[..., :, None] * dscale[..., None, :]
     L, info = torch.linalg.cholesky_ex(Hs)
-    sol = torch.cholesky_solve((rhs * dscale)[:, None], L)[:, 0] * dscale
-    sol = nan_unless_factored(sol, info)
+    b = (rhs * dscale)[..., None]
+    if H.dim() == 2:
+        y = torch.cholesky_solve(b, L)
+    else:
+        # A stack with one right-hand side each: cholesky_solve takes
+        # cuSOLVER's potrsBatched there, which ran 9x slower on an H100
+        # than these two batched triangular solves at six 3684^2 systems
+        # (PERF.md, the rescue's dense batch).
+        y = torch.linalg.solve_triangular(
+            L.transpose(-1, -2),
+            torch.linalg.solve_triangular(L, b, upper=False), upper=True)
+    sol = nan_unless_factored(y[..., 0] * dscale, info,
+                              H.shape[0] if H.dim() == 3 else None)
     ds = sol[D * n:] if switches else torch.zeros(
         (E,), dtype=sol.dtype, device=sol.device)
-    return Update(poses=sol[:D * n].reshape(n, D), switches=ds)
+    return Update(poses=sol[..., :D * n].reshape(-1, D), switches=ds)
 
 
 def dense_solve(system: BlockSystem, edges: EdgeSet, lam: Tensor,
                 plan) -> Update:
     """Exact damped solve through the dense Jacobi-equilibrated Cholesky:
     pose unknowns under a :class:`SegmentPlan`, the joint system with one
-    switch unknown per edge under a :class:`JointPlan`."""
+    switch unknown per edge under a :class:`JointPlan`, B problems' pose
+    unknowns under a :class:`DenseBatchPlan` (``lam`` then per node)."""
     n, D = system.Hdiag.shape[0], system.Hdiag.shape[-1]
     E = edges.num_edges
-    Hd, Hss = damped_diag(system, lam)
-    rows = [Hd, system.Hoff, system.Hoff.transpose(-1, -2)]
+    rows = [damped_blocks(system, lam), system.Hoff,
+            system.Hoff.transpose(-1, -2)]
     rhs = -system.g.reshape(-1)
     switches = isinstance(plan, JointPlan)
     if switches:
+        _, Hss = damped_diag(system, lam)
         sel = plan.row_sel
         Sa = sel[:, :, None] * system.Hps_a[:, None, :]
         Sb = sel[:, :, None] * system.Hps_b[:, None, :]
@@ -132,9 +193,13 @@ def dense_solve(system: BlockSystem, edges: EdgeSet, lam: Tensor,
                  Sa, Sa.transpose(-1, -2), Sb, Sb.transpose(-1, -2)]
         rhs = torch.cat([rhs, -system.gs])
         plan = plan.plan
+    elif isinstance(plan, DenseBatchPlan):
+        rhs = rhs.reshape(plan.seeds, -1)
+        n //= plan.seeds
+        plan = plan.plan
     H = scatter_add_rows(torch.cat(rows).reshape(-1, D * D), plan)
-    dim = rhs.shape[0]
-    return _finish_dense(H[:dim, :dim], rhs, n, D, E, switches)
+    dim = rhs.shape[-1]
+    return _finish_dense(H[..., :dim, :dim], rhs, n, D, E, switches)
 
 
 # ---------------------------------------------------------------------------

@@ -6,11 +6,14 @@ Python loops over device tensors: the state stays on the device, and
 Damping is Marquardt-scaled with the Nielsen update; ``lm_fixed_iters``
 also carries the opt-in stock-Ceres bookkeeping (``trust_region="ceres"``).
 
-``lm_fixed_iters`` on a seed batch's partition (``SchurPartition.seeds``,
-``solver/batch.py``) runs B seeds' problems as one flat problem of B*N
-nodes and B*E edges, as ``jax.vmap(lm_fixed_iters)`` runs them: cost,
-lambda, nu and acceptance are ``(B,)``, each seed's repeated over its own
-rows, and every sum is each seed's.
+On a seed batch's plan (``SchurPartition.seeds`` or
+``linear.DenseBatchPlan.seeds``, ``solver/batch.py``) both loops run B
+problems as one flat problem of B*N nodes and B*E edges, as ``jax.vmap``
+runs the JAX loops: cost, lambda, nu and acceptance are ``(B,)``, each
+seed's repeated over its own rows, and every sum is each seed's.
+``lm_solve`` then stops each seed at its own convergence, as a vmapped
+``while_loop`` does: the step runs on every seed, and only the seeds still
+running take it.
 """
 
 from __future__ import annotations
@@ -207,25 +210,45 @@ def _cast(poses0, switches0, cfg):
     return poses0.to(dtype), switches0.to(dtype)
 
 
+def _take(run: Tensor, new: LMState, old: LMState, seeds: int) -> LMState:
+    """``new`` in the seeds where ``run`` holds, ``old`` elsewhere (a
+    vmapped ``while_loop``'s select); the counters are the loop's."""
+    def pick(a, b):
+        return torch.where(_rows(run, a, seeds), a, b)
+
+    return new._replace(
+        poses=pick(new.poses, old.poses),
+        switches=pick(new.switches, old.switches),
+        **{f: torch.where(run, getattr(new, f), getattr(old, f))
+           for f in ("cost", "lam", "nu", "accepted", "converged")})
+
+
 def lm_solve(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
              free: FreeMask, cfg: SolverConfig, model=None,
              partition=None) -> LMResult:
     """Run LM to convergence (or ``cfg.max_iterations``).  ``model=None``
-    takes the model of the poses' width (SE(2) or SE(3))."""
+    takes the model of the poses' width (SE(2) or SE(3)).  On a seed
+    batch's plan (see the module docstring; ``batch.lm_solve_batch`` takes
+    the poses stacked) each seed stops at its own convergence, the loop
+    ends when none is running, and ``iterations`` is ``(B,)``, each
+    seed's."""
     require_type(cfg, SolverConfig, "cfg")
     model = model or model_for_dim(poses0.shape[-1])
     poses0, switches0 = _cast(poses0, switches0, cfg)
-    kw = _cost_kw(cfg, model)
     plan = linear_plan(cfg, edges, partition)
-    if getattr(plan, "seeds", None) is not None:
-        raise NotImplementedError("lm_solve does not take a seed batch yet "
-                                  "(ROADMAP A19e); use lm_fixed_iters")
+    seeds = getattr(plan, "seeds", None)
+    kw = dict(_cost_kw(cfg, model), seeds=seeds)
     gnc = bool(cfg.gnc_anneal_iters) and cfg.robust == "dcs"
     cost0 = cost_only(poses0, switches0, edges, **kw)
     s = _init_state(poses0, switches0, cost0, cfg)
+    if seeds is not None:
+        # Every running seed shares the loop's counter (GNC's phi follows
+        # it); each seed's iterations are its own.
+        lane_it = torch.zeros((seeds,), dtype=torch.int64,
+                              device=poses0.device)
     while s.it < cfg.max_iterations:
         new_poses, new_switches, new_cost, prev_cost, model_red, inner = \
-            _propose(s, edges, free, cfg, model, plan, kw, gnc)
+            _propose(s, edges, free, cfg, model, plan, kw, gnc, seeds)
         rho = (prev_cost - new_cost) / torch.clamp(model_red, min=1e-30)
         accept = new_cost < prev_cost
         factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
@@ -236,9 +259,11 @@ def lm_solve(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
         converged = accept & (rel_decrease < cfg.function_tolerance)
         if gnc:  # no convergence while phi is still annealing
             converged = converged & (s.it >= cfg.gnc_anneal_iters)
-        s = LMState(
-            poses=torch.where(accept, new_poses, s.poses),
-            switches=torch.where(accept, new_switches, s.switches),
+        step = LMState(
+            poses=torch.where(_rows(accept, new_poses, seeds), new_poses,
+                              s.poses),
+            switches=torch.where(_rows(accept, new_switches, seeds),
+                                 new_switches, s.switches),
             cost=torch.where(accept, new_cost, prev_cost),
             lam=torch.where(accept, lam_acc, lam_rej),
             nu=torch.where(accept, torch.full_like(s.nu, 2.0), s.nu * 2.0),
@@ -247,9 +272,18 @@ def lm_solve(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
             converged=converged,
             lin_iters=s.lin_iters + inner,
         )
-        if bool(converged.item()):
+        if seeds is None:
+            s = step
+            done = converged
+        else:
+            run = ~s.converged
+            s = _take(run, step, s, seeds)
+            lane_it = lane_it + run.to(torch.int64)
+            done = s.converged.all()
+        if bool(done.item()):
             break
-    return _result(s, cost0)
+    res = _result(s, cost0)
+    return res if seeds is None else res._replace(iterations=lane_it)
 
 
 def lm_fixed_iters(poses0: Tensor, switches0: Tensor, edges: EdgeSet,

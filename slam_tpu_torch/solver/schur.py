@@ -750,12 +750,8 @@ def schur_solve(system: BlockSystem, edges: EdgeSet, part: SchurPartition,
     dp = scatter_add_rows(
         torch.cat([x_sep.reshape(nst, D), x_int.reshape(P * ni, D)]),
         part.plan_out)
-    if not blocked and part.seeds is None:
-        # The blocked factor carries its NaN itself.
-        dp = nan_unless_factored(nan_unless_factored(dp, info), info_s)
-    elif not blocked:  # each seed's own factorisations
-        ok = (info.reshape(part.seeds, -1) == 0).all(-1) & (info_s == 0)
-        dp = torch.where(ok.repeat_interleave(dp.shape[0] // part.seeds)
-                         [:, None], dp, torch.full_like(dp, np.nan))
+    if not blocked:  # the blocked factor carries its NaN itself
+        dp = nan_unless_factored(nan_unless_factored(dp, info, part.seeds),
+                                 info_s, part.seeds)
     return Update(poses=dp,
                   switches=torch.zeros((E,), dtype=dtype, device=dev))

@@ -24,6 +24,12 @@ constraints (``"sc"``, method 2) or their variable projection
   maxima of ``partition_stats`` over the seeds, plain DCS, for
   ``solver/batch.py``'s ``lm_fixed_iters_batch``.
 
+- the chain batch, the DCS rescue's first consensus round on INTEL+50
+  seed 42 (method 1, as the global solve sets it up): the plain solve,
+  its psi, the first masks of the default chains, and the chains stacked
+  by ``solver/batch.py``'s ``chain_batch`` on the Schur or the dense
+  solver, for ``lm_solve_batch``.
+
 ``CONFIGS`` are the Schur factorisations they are compared under;
 :func:`reference_key` and :func:`sphere_reference_key` name the float64
 JAX reference of a run in ``slam_tpu_torch/data/reference_costs.json``.
@@ -239,3 +245,54 @@ def intel50_seed_batch(device, dtype) -> BatchCase:
     cfg = SolverConfig(robust="dcs", linear_solver="schur",
                        dtype=str(dtype).replace("torch.", ""))
     return BatchCase(graphs, batch, cfg, alone)
+
+
+class ChainCase(NamedTuple):
+    """The rescue's first consensus round, set up for ``lm_solve_batch``."""
+
+    prob: object       # methods.global_solve.Problem of INTEL+50 seed 42
+    chains: object     # solver.batch.ChainBatch
+    masks: object      # (C, E) the first round's masks, times the base mask
+
+    @property
+    def args(self) -> tuple:
+        """``(poses0, switches0, edges, free)`` of the chains, stacked,
+        their edges under the first round's masks."""
+        c = self.chains
+        return (c.poses0, c.switches0, c.masked(self.masks), c.free)
+
+    @property
+    def flat_args(self) -> tuple:
+        """The same as one flat problem, for ``lm_fixed_iters``."""
+        p, s, e, f = self.args
+        return (p.reshape(-1, p.shape[-1]), s.reshape(-1), e, f)
+
+
+def intel50_chains(device, dtype_name: str, linear_solver: str = "auto",
+                   masks=None) -> ChainCase:
+    """INTEL+50 seed 42 under the rescue's first round: its chains stacked
+    on ``linear_solver`` ("auto" is the Schur solver at INTEL's size),
+    under ``masks`` or the masks the rescue builds from the plain solve on
+    that solver."""
+    from slam_tpu_torch.methods.global_solve import first_chain_masks
+    from slam_tpu_torch.solver.batch import chain_batch
+    from slam_tpu_torch.solver.linearize import loop_psi
+    from slam_tpu_torch.solver.lm import lm_solve
+    from slam_tpu_torch.solver.models import model_for_dim
+
+    prob = intel50(device, dtype_name, linear_solver=linear_solver)
+    cfg, edges = prob.scfg, prob.edges
+    C = cfg.dcs_consensus_chains
+    base = edges.active.cpu().numpy()
+    if masks is None:
+        res = lm_solve(prob.poses0, prob.switches0, edges, prob.free, cfg,
+                       partition=prob.partition)
+        psi = loop_psi(res.poses, edges, model_for_dim(res.poses.shape[-1]),
+                       cfg.dcs_phi)
+        masks = first_chain_masks(
+            psi.cpu().numpy(), base * edges.is_loop.cpu().numpy(), base, C,
+            42, cfg.dcs_consensus_cut) * base
+    return ChainCase(prob, chain_batch(prob.poses0, prob.switches0, edges,
+                                       prob.free, cfg, prob.partition, C),
+                     masks)
+

@@ -42,6 +42,7 @@ from slam_tpu.solver import schur as js
 from slam_tpu_torch import convert
 from slam_tpu_torch.ops import chol as tchol
 from slam_tpu_torch.solver import batch as tb
+from slam_tpu_torch.solver import linear
 from slam_tpu_torch.solver import schur as ts
 from slam_tpu_torch.solver.lm import lm_fixed_iters, lm_solve
 from slam_tpu_torch.solver.problem import anchor_first_node, \
@@ -133,9 +134,10 @@ def port_batch(graphs, cfg, blocks=BLOCKS, iters=ITERS):
 
 
 def port_alone(graph, cfg, blocks=BLOCKS, iters=ITERS, batch=None):
-    """One seed through the unbatched solver: its own edges, unpadded,
-    and its own (natural) partition; or with ``batch`` its share of the
-    batch's shapes (its edges and pad shapes)."""
+    """One seed through the unbatched solver (``lm_solve`` when ``iters``
+    is None): its own edges, unpadded, and its own (natural) partition;
+    or with ``batch`` its share of the batch's shapes (its edges and pad
+    shapes)."""
     g = convert.graph_from_jax(graph).canonical_order()
     dtype = getattr(torch, cfg.dtype)
     e = edge_set_from_graph(
@@ -144,10 +146,12 @@ def port_alone(graph, cfg, blocks=BLOCKS, iters=ITERS, batch=None):
         ts.build_slots(np.asarray(e.ij), g.num_nodes, blocks,
                        pad_shapes=batch.pad_shapes if batch else None),
         dtype=dtype)
-    return lm_fixed_iters(torch.as_tensor(g.poses, dtype=dtype),
-                          torch.ones(e.num_edges, dtype=dtype), e,
-                          anchor_first_node(g.num_nodes, dtype=dtype), cfg,
-                          iters, partition=part)
+    args = (torch.as_tensor(g.poses, dtype=dtype),
+            torch.ones(e.num_edges, dtype=dtype), e,
+            anchor_first_node(g.num_nodes, dtype=dtype), cfg)
+    if iters is None:  # to convergence
+        return lm_solve(*args, partition=part)
+    return lm_fixed_iters(*args, iters, partition=part)
 
 
 def rel(a, b):
@@ -355,7 +359,7 @@ def test_one_launch_per_kernel_call_of_one_seed(graphs, blocked):
 
 
 @pytest.mark.parametrize("kw", [dict(robust="sc"),
-                                dict(linear_solver="dense"),
+                                dict(robust="sc", linear_solver="dense"),
                                 dict(linear_solver="pcg"),
                                 dict(linear_solver="woodbury")])
 def test_what_the_batch_does_not_take_raises(graphs, kw):
@@ -377,6 +381,52 @@ def test_batch_checks_its_inputs(graphs):
     with pytest.raises(ValueError, match="do not match"):
         tb.lm_fixed_iters_batch(b.poses0[:2], b.switches0[:2], b.edges,
                                 b.free, cfg, 1, partition=b.partition)
-    with pytest.raises(NotImplementedError, match="ROADMAP A19e"):
-        lm_solve(b.poses0.reshape(-1, 3), b.switches0.reshape(-1), b.edges,
-                 b.free, cfg, partition=b.partition)
+    with pytest.raises(NotImplementedError, match="ROADMAP A19d"):
+        linear.dense_plan(b.edges, switches=True, seeds=b.seeds)
+    with pytest.raises(ValueError, match="not 2 problems"):
+        linear.dense_plan(b.edges, seeds=2)
+
+
+def port_alone_edges(graph, batch):
+    """One seed's edges on its share of the batch's padded edge count."""
+    return edge_set_from_graph(
+        convert.graph_from_jax(graph).canonical_order(),
+        pad_to=batch.switches0.shape[1])
+
+
+@pytest.mark.parametrize("name", ["native-nielsen", "native-ceres"])
+def test_dense_batch_matches_each_seed_alone(graphs, hard, name):
+    """The batched dense solver (``linear.dense_plan(seeds=B)``) under
+    ``lm_fixed_iters_batch``, from both starts: each seed against its
+    dense run alone on its share of the padded edges."""
+    cfg = tb.SolverConfig(robust="dcs", linear_solver="dense",
+                          dtype="float64", **CONFIGS[name])
+    for start in (graphs, hard):
+        b = tb.seed_batch([convert.graph_from_jax(g) for g in start], BLOCKS)
+        res = convert.lm_result_to_numpy(tb.lm_fixed_iters_batch(
+            *b.args, cfg, ITERS, partition=linear.dense_plan(
+                b.edges, seeds=b.seeds)))
+        for i, g in enumerate(start):
+            e = port_alone_edges(g, b)
+            alone = convert.lm_result_to_numpy(lm_fixed_iters(
+                b.poses0[i], b.switches0[i], e, anchor_first_node(64), cfg,
+                ITERS, partition=linear.dense_plan(e)))
+            assert_per_seed(seed(res, i), alone, SELF_RTOL, SELF_RTOL * 10)
+            assert res["accepted"][i] == alone["accepted"]
+
+
+def test_lm_solve_takes_the_seed_batch(graphs):
+    """``lm_solve`` on a seed batch (the port of ``jax.vmap(lm_solve)``):
+    each seed to its own convergence, as alone."""
+    cfg = tb.SolverConfig(robust="dcs", linear_solver="schur",
+                          dtype="float64", max_iterations=40)
+    b = tb.seed_batch([convert.graph_from_jax(g) for g in graphs], BLOCKS)
+    res = convert.lm_result_to_numpy(tb.lm_solve_batch(
+        *b.args, cfg, b.partition))
+    assert res["iterations"].shape == (3,) and res["converged"].all()
+    for i, g in enumerate(graphs):
+        alone = convert.lm_result_to_numpy(
+            port_alone(g, cfg, iters=None, batch=b))
+        assert_per_seed(seed(res, i), alone, SELF_RTOL, SELF_RTOL * 10)
+        for f in ("iterations", "accepted", "converged"):
+            assert res[f][i] == alone[f], f
