@@ -33,8 +33,10 @@ the script exits non-zero and prints no result line):
      TOL of its plain version;
    - the same on the fused method-3 engine's own inputs, on its Schur
      plan, at INTEL+50 and M3500+50 (a run cut to its first
-     ``MANAGER_KERNEL_CANDIDATES`` closures): a candidate evaluation's
-     edge mask with every node but node 0 free, and a windowed commit;
+     ``MANAGER_KERNEL_CANDIDATES`` closures): a candidate step's ten
+     evaluations folded into one batch (their edge masks, every node but
+     node 0 free, on the stacked plan of ten lanes), and a windowed
+     commit;
    - ``micro_chol_inv`` on SPD batches of (16, 128, 128) and
      (32, 128, 128), of 48, 80 and 128 such panels (where the kernel
      takes 2 and 1 CTAs a matrix; 128 is the seed batch's, 8 seeds x 16
@@ -172,6 +174,25 @@ the script exits non-zero and prints no result line):
    whole: every closure decided, finite poses, and its layers, chosen
    layers and ATE beside the JAX float32 record
    (``results/layer_tables/M3500_50out_s0_m4.json``), not gated;
+   (d) ``manager_fold``: the candidate evaluations folded into one
+   batched short solve (``solver/batch.lm_fixed_iters_candidates``):
+   in float64 on INTEL+50 seed 42, on the Schur and the dense eval, the
+   last folded batch of each width of a fused run cut to
+   ``FOLD_CANDIDATES`` closures (a layering step's ten evaluations, a
+   MCTS step's split check of three and reward of two), each lane held
+   to its solve alone within ``FOLD_F64_RTOL`` in cost and
+   ``FOLD_F64_POSE_ATOL`` in poses, and the launches of one batched
+   iteration equal to one lane's (with the batch's peak allocated
+   memory); in float32, the fused engines of
+   methods 3 and 4 on that cell cut to ``FOLD_CANDIDATES`` closures,
+   folded and with one call per evaluation as before the fold, in turns
+   (folded, looped, looped, folded): wall, calls, launches and peak
+   allocated memory per candidate, and (under torch.profiler, with the
+   kernels' times, on runs cut to ``FOLD_PROFILE_CANDIDATES`` closures
+   against their own unprofiled wall) device ms and busy share per
+   candidate;
+   phases 9 and 10 print each run's ``lm_fixed_iters`` calls beside its
+   short solves (a folded batch is one call, each lane one solve);
 11. the last modules (Woodbury, sweeps, the distributed solvers,
    profiling):
    (a) ``woodbury_path``: ``INTEL 50 1 --seed 42 --linear-solver woodbury
@@ -359,6 +380,16 @@ FUSED_CELLS = tuple(FUSED_MANAGER_DIFF_GATES)
 FUSED_PCG_CANDIDATES = 8
 # Phase 10b: fused against host in float64 (the JAX package's own test).
 FUSED_VS_HOST_ATOL = 1e-9
+# [manager_fold]: (a) each lane of a folded batch of short solves against
+# its solve alone in float64 (the seed and chain batches' kind of
+# difference: one batched factorisation against another); (b) the fused
+# engines, folded and looped, on runs cut to FOLD_CANDIDATES closures.
+FOLD_F64_RTOL = 1e-12
+FOLD_F64_POSE_ATOL = 1e-10
+FOLD_CANDIDATES = 32
+# ... and their device time on runs cut to this many (a profiler session
+# over the looped engine's ~5700 launches a candidate is slow).
+FOLD_PROFILE_CANDIDATES = 8
 # The managers' short-solve inputs of phase 2 come from a run cut to this
 # many closures (cells: dataset, outliers, seed of the phase-9 runs; the
 # fused engine's at INTEL+50 and M3500+50).
@@ -474,7 +505,7 @@ PHASE_KERNELS = {
                            "fused_linearize_se2"),
     **{phase: ("gather_rows", "scatter_add_rows", "fused_linearize_se2")
        for phase in (*MANAGER_PHASES, "fused_managers", "fused_vs_host",
-                     "fused_m3500", "woodbury_path", "sweep", "dist_edge",
+                     "fused_m3500", "manager_fold", "woodbury_path", "sweep", "dist_edge",
                      "dist_edge_nccl", "dist_schur", "dist_schur_spectral",
                      "profile")},
 }
@@ -730,8 +761,9 @@ def check_manager_shapes(device, dtype, graphs: dict,
                                                              "window"}:
             raise AssertionError(f"{cell} fused: {ss.cfg.linear_solver} "
                                  f"plan, cases {sorted(cases)}")
-        check_short_solves(f"{cell}-fused-m3", ss.cfg, ss.plan, cases,
-                           dtype)
+        for kind, (args, plan) in cases.items():
+            check_short_solves(f"{cell}-fused-m3", ss.cfg, plan,
+                               {kind: args}, dtype)
 
 
 def one_rank_mesh(axis: str, device):
@@ -2293,7 +2325,8 @@ def phase_fused_managers(smi: str) -> dict:
                              f"eval, {len(syncs)} host reads")
     log("fused_pcg", cell="intel50_m4", candidates=FUSED_PCG_CANDIDATES,
         wall_s=round(wall, 3), s_per_candidate=wall / FUSED_PCG_CANDIDATES,
-        short_solves=mgr.ss.solves, lm_iterations=mgr.ss.iterations,
+        short_solves=mgr.ss.solves, calls=mgr.ss.calls,
+        lm_iterations=mgr.ss.iterations,
         host_reads_per_candidate=len(syncs) / FUSED_PCG_CANDIDATES,
         launches=json.dumps(counts), card=json.dumps(smi))
     return total
@@ -2312,7 +2345,8 @@ def phase_fused_vs_host(smi: str) -> dict:
             log("fused_vs_host", engine="fused" if fused == "on" else "host",
                 eval=mgr.eval_cfg.linear_solver, dtype=mgr.eval_cfg.dtype,
                 wall_s=round(wall, 3), short_solves=mgr.ss.solves,
-                layers=len(out.layers), best=out.best_layer,
+                calls=mgr.ss.calls, layers=len(out.layers),
+                best=out.best_layer,
                 launches=json.dumps(counts), card=json.dumps(smi))
     fo, ho = runs["on"][0], runs["off"][0]
     if fo.assignments != ho.assignments or list(fo.layers) != list(ho.layers) \
@@ -2361,6 +2395,172 @@ def phase_fused_m3500(smi: str) -> dict:
                              f"{row['candidates']} closures decided")
     require_launches("fused_m3500", counts)
     return counts
+
+
+def fold_inputs(method: int, flags: tuple, candidates: int) -> tuple:
+    """``(manager, {width: (poses, masks, iterations)})``: the last folded
+    evaluation of each width in the fused engine's run of ``INTEL 50
+    METHOD --seed 42 FLAGS`` cut to ``candidates`` closures."""
+    mgr = fused_manager("INTEL", 50, 42, method, flags)
+    mgr.loop_indices = mgr.loop_indices[:candidates]
+    seen, costs = {}, mgr.ss.device_costs
+
+    def record(poses_b, actives_b, num_iters):
+        seen[poses_b.shape[0]] = (poses_b, actives_b, num_iters)
+        return costs(poses_b, actives_b, num_iters)
+
+    mgr.ss.device_costs = record
+    mgr.run()
+    return mgr, seen
+
+
+def looped(ss) -> None:
+    """Give ``ss`` the parent's evaluations: one ``lm_fixed_iters`` call
+    per candidate where a folded call serves them all."""
+    def device_costs(poses_b, actives_b, num_iters):
+        return torch.stack([
+            ss.device_solve(p, a, ss.free_first.node, num_iters)[1]
+            for p, a in zip(poses_b, actives_b)])
+
+    ss.device_costs = device_costs
+
+
+def fold_run(method: int, mode: str, candidates: int) -> tuple:
+    """``(manager, output, wall s, launch counts, peak bytes above those
+    held)`` of the fused engine's run of ``INTEL 50 METHOD --seed 42``
+    (float32, the Schur eval) cut to ``candidates`` closures, its
+    evaluations folded or looped."""
+    mgr = fused_manager("INTEL", 50, 42, method)
+    mgr.loop_indices = mgr.loop_indices[:candidates]
+    if mode == "loop":
+        looped(mgr.ss)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    out, wall, counts = run_manager(mgr)
+    return (mgr, out, wall, counts,
+            torch.cuda.max_memory_allocated() - held)
+
+
+def phase_manager_fold(smi: str, timings: list) -> dict:
+    """Phase 10d: the managers' candidate evaluations folded into one
+    batched short solve.  (a) float64, INTEL+50 seed 42, on the Schur and
+    the dense eval: the fused engines' real folded batches (a layering
+    step's ten evaluations, a MCTS step's split check and reward), each
+    lane held to its solve alone, the launches of one batched iteration
+    to one lane's; (b) float32, the fused engines folded against looped,
+    in turns; their device times are appended to ``timings``.  Returns
+    the launch counts of (b)'s folded runs."""
+    from slam_tpu_torch.methods import batched
+
+    for linear in ("schur", "dense"):
+        flags = ("--dtype", "float64", "--eval-linear", linear)
+        for method in (3, 4):
+            mgr, seen = fold_inputs(method, flags, FOLD_CANDIDATES)
+            ss = mgr.ss
+            if ss.cfg.linear_solver != linear or sorted(seen) != sorted(
+                    ss.stacked):
+                raise AssertionError(
+                    f"manager_fold m{method} {linear}: the widths "
+                    f"{sorted(seen)}, the plans {sorted(ss.stacked)}")
+            free = ss.free_first.node
+            for width, (P, A, iters) in sorted(seen.items()):
+                plan, free_b = ss.batch_plan(width), free.expand(width, -1)
+
+                def fold(n, P=P, A=A, plan=plan, free_b=free_b):
+                    return batched.batched_masked_solve(
+                        P, A, free_b, ss.edges, ss.cfg, n, plan)
+
+                def one(n, k=0, P=P, A=A):
+                    return batched.masked_solve(P[k], A[k], free, ss.edges,
+                                                ss.cfg, n, ss.plan)
+
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                fp, fc = fold(iters)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - held
+                solo = [one(iters, k) for k in range(width)]
+                cost_rel = max(abs(fc[k].item() - c.item()) / abs(c.item())
+                               for k, (_, c) in enumerate(solo))
+                pose_err = max((fp[k] - p).abs().max().item()
+                               for k, (p, _) in enumerate(solo))
+                per_fold, per_lane = (iteration_launches(fold),
+                                      iteration_launches(one))
+                log("manager_fold", part="a", method=method, eval=linear,
+                    dtype="float64", lanes=width, lm_iterations=iters,
+                    cost_rel_diff=cost_rel, pose_max_abs_diff_m=pose_err,
+                    gates=json.dumps([FOLD_F64_RTOL, FOLD_F64_POSE_ATOL]),
+                    peak_allocated_bytes=peak,
+                    launches_per_batched_iteration=json.dumps(per_fold),
+                    launches_per_lane_iteration=json.dumps(per_lane),
+                    card=json.dumps(smi))
+                if not (cost_rel <= FOLD_F64_RTOL
+                        and pose_err <= FOLD_F64_POSE_ATOL):
+                    raise AssertionError(
+                        f"manager_fold m{method} {linear} x{width}: lanes "
+                        f"{cost_rel} (cost) and {pose_err} m from their "
+                        "solves alone")
+                if per_fold != per_lane:
+                    raise AssertionError(
+                        f"manager_fold m{method} {linear} x{width}: launches "
+                        f"{per_fold} a batched iteration, {per_lane} a "
+                        "lane's")
+            del mgr, ss, seen
+            torch.cuda.empty_cache()
+
+    total = {}
+    for method in (3, 4):
+        for mode in ("folded", "loop"):  # warm-up
+            fold_run(method, mode, 4)
+        runs = {}
+        for mode in ("folded", "loop", "loop", "folded"):
+            mgr, out, wall, counts, peak = fold_run(method, mode,
+                                                    FOLD_CANDIDATES)
+            runs.setdefault(mode, []).append(out)
+            n = len(mgr.loop_indices)
+            log("manager_fold", part="b", method=method, mode=mode,
+                dtype=mgr.eval_cfg.dtype, eval=mgr.eval_cfg.linear_solver,
+                candidates=n, wall_s=round(wall, 4),
+                ms_per_candidate=wall * 1e3 / n,
+                calls_per_candidate=mgr.ss.calls / n,
+                short_solves_per_candidate=mgr.ss.solves / n,
+                launches_per_candidate=json.dumps(
+                    {k: c / n for k, c in counts.items()}),
+                peak_allocated_bytes=peak, card=json.dumps(smi))
+            if mode == "folded":
+                for k, c in counts.items():
+                    total[k] = total.get(k, 0) + c
+        same = [a.assignments == b.assignments for a in runs["folded"]
+                for b in runs["loop"]]
+        log("manager_fold", part="b", method=method,
+            folded_assignments_equal_looped=all(same))
+
+    def device_times():  # profiled in the report, after every other time
+        from torch.profiler import ProfilerActivity, profile
+
+        from slam_tpu_torch.tools.profile_lm import device_us
+
+        n = FOLD_PROFILE_CANDIDATES
+        for method, mode in ((m, k) for m in (3, 4)
+                             for k in ("folded", "loop")):
+            wall = fold_run(method, mode, n)[2] * 1e3 / n
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fold_run(method, mode, n)
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages() if device_us(e) > 0]
+            dev = sum(device_us(e) for e in events) / 1e3 / n
+            log("manager_fold", part="b", method=method, mode=mode,
+                candidates=n, device_ms_per_candidate=dev,
+                wall_ms_per_candidate=wall, busy_share=dev / wall,
+                device_launches_per_candidate=sum(
+                    e.count for e in events) / n, card=json.dumps(smi))
+
+    timings.append(lambda: ([], [], device_times))
+    require_launches("manager_fold", total)
+    return total
 
 
 def phase_woodbury(device, smi: str) -> dict:
@@ -2845,6 +3045,7 @@ def main() -> int:
         ("fused_managers", lambda: phase_fused_managers(smi)),
         ("fused_vs_host", lambda: phase_fused_vs_host(smi)),
         ("fused_m3500", lambda: phase_fused_m3500(smi)),
+        ("manager_fold", lambda: phase_manager_fold(smi, timings)),
         ("woodbury_path", lambda: phase_woodbury(device, smi)),
         ("sweep", lambda: phase_sweep(device, smi)),
         ("dist_edge", lambda: phase_dist_edge(device, smi)),
@@ -2870,7 +3071,8 @@ def main() -> int:
                 "se3_path": out["se3_path"], "se3_ab": out["se3_ab"],
                 "golden": out["golden"], **out["managers"],
                 **{p: out[p] for p in ("fused_managers", "fused_vs_host",
-                                       "fused_m3500", "woodbury_path",
+                                       "fused_m3500", "manager_fold",
+                                       "woodbury_path",
                                        "sweep", "profile")},
                 **out["dist_edge"], **out["dist_schur"]}
     kernels = [

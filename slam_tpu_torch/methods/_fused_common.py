@@ -119,10 +119,14 @@ def run_chunked(state, chunk_fn, consts, xs: list[np.ndarray], chunk: int,
     return state, (_concat(outs) if outs else {}), chunks
 
 
-def setup_eval_solver(graph, cfg, solver: SolverConfig, device):
+def setup_eval_solver(graph, cfg, solver: SolverConfig, device,
+                      widths: tuple = ()):
     """The fused engines' short solves (methods 3 and 4).  Returns
     ``(ss, scan_chunk)``: the :class:`ShortSolves` of ``graph`` (its
-    edge set, gauge and the one plan every eval shares) and the chunk.
+    edge set, gauge, the one plan every eval shares and, on the Schur and
+    dense evals, the stacked plan of each batch width in ``widths``) and
+    the chunk.  The stacked plans read the host, so every width a chunk
+    folds is built here, before the first chunk.
 
     The eval's linear solver: ``auto``/``schur`` is the exact partitioned
     Schur solve on the card at every graph size (the JAX accelerator rule
@@ -143,6 +147,6 @@ def setup_eval_solver(graph, cfg, solver: SolverConfig, device):
     if cfg.eval_linear in ("schur", "pcg", "dense"):
         linear = cfg.eval_linear
     eval_cfg = eval_solver_config(solver, cfg, graph.num_nodes, linear)
-    ss = ShortSolves(graph, eval_cfg, dev, cfg.eval_schur_blocks)
+    ss = ShortSolves(graph, eval_cfg, dev, cfg.eval_schur_blocks, widths)
     chunk = DEFAULT_CHUNK if cfg.scan_chunk is None else cfg.scan_chunk
     return ss, chunk

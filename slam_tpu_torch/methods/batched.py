@@ -8,11 +8,19 @@ Here a candidate is a (poses, edge-activity mask) pair over the one
 canonical :class:`EdgeSet`: ``edges._replace(active=mask)`` keeps its
 scatter plans, so no problem is rebuilt.
 
-The JAX package ``vmap``s the batch into one device program; here each
-candidate is its own :func:`lm_fixed_iters` call, and a batch's costs stay
-on the device until the caller reads them all at once.  Every function
-takes the linear plan, which the caller builds once per graph
-(:func:`eval_plan`), so no call re-plans the dense assembly.
+The JAX package ``vmap``s a batch of candidates into one device program;
+here the candidates are folded into one ``lm_fixed_iters`` call over B
+copies of the problem (``solver/batch.py``: :func:`batch.candidate_plan`,
+:func:`batch.lm_fixed_iters_candidates`), each with its own damping,
+acceptance and cost, on the Schur and the dense eval.  Only the PCG eval
+still loops over the candidates, one ``lm_fixed_iters`` call each, until
+the batched PCG (ROADMAP A19a; ``batch.NOT_BATCHED``).  A batch's costs
+stay on the device until the caller reads them all at once.  Every
+function takes the linear plan, which the caller builds once per graph
+(:func:`eval_plan`): the single problem's, from which a batch of B
+builds its stacked plan, or that stacked plan (a
+:class:`batch.CandidatePlan` of B lanes), which a caller that evaluates
+batches of one width many times builds once and keeps.
 """
 
 from __future__ import annotations
@@ -20,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from slam_tpu_torch.config import SolverConfig
-from slam_tpu_torch.solver import linear
+from slam_tpu_torch.solver import batch, linear
 from slam_tpu_torch.solver.lm import lm_fixed_iters
 from slam_tpu_torch.solver.problem import EdgeSet, FreeMask
 
@@ -71,12 +79,35 @@ def _check_plan(cfg: SolverConfig, plan) -> None:
                          "eval_plan(cfg, edges)")
 
 
+def folded(cfg: SolverConfig) -> bool:
+    """Whether a batch of short solves on ``cfg`` is one folded call (the
+    Schur and dense evals) or one call per candidate (PCG, A19a)."""
+    return cfg.linear_solver != "pcg"
+
+
+def stacked_plan(edges: EdgeSet, cfg: SolverConfig, plan,
+                 lanes: int) -> batch.CandidatePlan:
+    """``plan`` as the stacked plan of ``lanes`` candidates: as given when
+    it is one, else built from the single problem's (host reads)."""
+    if isinstance(plan, batch.CandidatePlan):
+        if plan.lanes != lanes:
+            raise ValueError(f"a plan of {plan.lanes} lanes for a batch of "
+                             f"{lanes} candidates")
+        return plan
+    return batch.candidate_plan(edges, cfg, plan, lanes)
+
+
 def _solve(poses, active, free, edges, cfg, num_iters, plan):
     e = edges._replace(active=active)
     sw = torch.ones((edges.num_edges,), dtype=active.dtype,
                     device=active.device)
     return lm_fixed_iters(poses, sw, e, free, cfg, num_iters,
                           partition=plan)
+
+
+def _stack(poses_b) -> Tensor:
+    return poses_b if isinstance(poses_b, Tensor) else torch.stack(
+        list(poses_b))
 
 
 def batched_eval_cost(
@@ -90,11 +121,18 @@ def batched_eval_cost(
 ) -> Tensor:
     """(B,) final costs of a ``num_iters``-iteration LM solve per
     candidate, on the device (the reference's ``summary.final_cost``:
-    after the short solve, Huber-robustified, 0.5-scaled)."""
+    after the short solve, Huber-robustified, 0.5-scaled), all B in one
+    folded call (PCG: one call each, A19a)."""
     _check_plan(cfg, plan)
-    return torch.stack([
-        _solve(poses, active, free, edges, cfg, num_iters, plan).cost
-        for poses, active in zip(poses_b, actives_b)])
+    if not folded(cfg):
+        return torch.stack([
+            _solve(poses, active, free, edges, cfg, num_iters, plan).cost
+            for poses, active in zip(poses_b, actives_b)])
+    poses_b = _stack(poses_b)
+    B = poses_b.shape[0]
+    return batch.lm_fixed_iters_candidates(
+        poses_b, actives_b, free.node.expand(B, -1), cfg, num_iters,
+        stacked_plan(edges, cfg, plan, B)).cost
 
 
 def masked_solve(
@@ -111,7 +149,8 @@ def masked_solve(
     The reference's windowed local optimisations
     (``layer_manager.cpp:137-179``, ``simple_layer_manager.cpp:500-565``):
     nodes outside the window are held by the free mask, edges outside are
-    inactive -- the semantics of building the sub-problem."""
+    inactive -- the semantics of building the sub-problem.  ``plan`` is
+    the single problem's."""
     _check_plan(cfg, plan)
     res = _solve(poses, active, FreeMask(node=free_node), edges, cfg,
                  num_iters, plan)
@@ -127,10 +166,16 @@ def batched_masked_solve(
     num_iters: int,
     plan,
 ) -> tuple[Tensor, Tensor]:
-    """:func:`masked_solve` of each of B candidates: ((B, N, 3) poses,
-    (B,) costs)."""
+    """:func:`masked_solve` of each of B candidates, in one folded call
+    (PCG: one call each, A19a): ((B, N, 3) poses, (B,) costs)."""
     _check_plan(cfg, plan)
-    out = [_solve(p, a, FreeMask(node=f), edges, cfg, num_iters, plan)
-           for p, a, f in zip(poses_b, actives_b, free_nodes_b)]
-    return (torch.stack([r.poses for r in out]),
-            torch.stack([r.cost for r in out]))
+    if not folded(cfg):
+        out = [_solve(p, a, FreeMask(node=f), edges, cfg, num_iters, plan)
+               for p, a, f in zip(poses_b, actives_b, free_nodes_b)]
+        return (torch.stack([r.poses for r in out]),
+                torch.stack([r.cost for r in out]))
+    poses_b = _stack(poses_b)
+    res = batch.lm_fixed_iters_candidates(
+        poses_b, actives_b, free_nodes_b, cfg, num_iters,
+        stacked_plan(edges, cfg, plan, poses_b.shape[0]))
+    return res.poses, res.cost

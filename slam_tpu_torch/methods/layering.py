@@ -119,11 +119,13 @@ def info_gain_np(info6) -> float:
 
 
 class ShortSolves:
-    """The edge set, gauge, plan and configuration of a manager's short
-    solves on one device, and their count."""
+    """The edge set, gauge, plans and configuration of a manager's short
+    solves on one device, and their counts: ``solves`` and ``iterations``
+    count each candidate's (a lane of a folded batch is one solve),
+    ``calls`` the ``lm_fixed_iters`` calls (a folded batch is one)."""
 
     def __init__(self, graph: PoseGraph, eval_cfg: SolverConfig, device,
-                 schur_blocks: int = 16):
+                 schur_blocks: int = 16, widths: tuple = ()):
         self.dev = runtime.setup_device(device)
         self.cfg = eval_cfg
         self.dtype = getattr(torch, eval_cfg.dtype)
@@ -134,22 +136,44 @@ class ShortSolves:
                                             device=self.dev)
         self.plan = batched.eval_plan(eval_cfg, self.edges, graph,
                                       schur_blocks)
+        self.stacked = {}
+        for width in widths:
+            self.batch_plan(width)
         self.solves = 0
         self.iterations = 0
+        self.calls = 0
 
     def tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float64), dtype=self.dtype,
                                device=self.dev)
 
+    def batch_plan(self, width: int):
+        """The plan of a batch of ``width`` candidates: on the Schur and
+        dense evals the stacked plan, built on first use (it reads the
+        host) and kept; on PCG the single problem's (none)."""
+        if not batched.folded(self.cfg):
+            return self.plan
+        if width not in self.stacked:
+            self.stacked[width] = batched.stacked_plan(
+                self.edges, self.cfg, self.plan, width)
+        return self.stacked[width]
+
     def costs(self, specs, num_iters: int) -> np.ndarray:
         """Final costs of ``num_iters``-iteration solves of the (poses,
         bool edge mask) specs, anchored at node 0, read back at once."""
-        poses = [p for p, _ in specs]
         actives = self.tensor(np.stack([m for _, m in specs]))
-        self._count(len(poses), num_iters)
+        return self.device_costs(torch.stack([p for p, _ in specs]),
+                                 actives, num_iters).cpu().numpy()
+
+    def device_costs(self, poses_b, actives_b, num_iters: int):
+        """(B,) costs of ``num_iters``-iteration solves of B candidates
+        ((B, N, 3) poses, (B, E) device masks), anchored at node 0, left
+        on the device: one folded call (the fused engines' evaluations)."""
+        B = poses_b.shape[0]
+        self._count(B, num_iters, 1 if batched.folded(self.cfg) else B)
         return batched.batched_eval_cost(
-            poses, actives, self.edges, self.free_first, self.cfg,
-            num_iters, self.plan).cpu().numpy()
+            poses_b, actives_b, self.edges, self.free_first, self.cfg,
+            num_iters, self.batch_plan(B))
 
     def solve(self, poses, mask: np.ndarray, free, num_iters: int
               ) -> torch.Tensor:
@@ -157,22 +181,21 @@ class ShortSolves:
         the device free mask."""
         if isinstance(free, np.ndarray):
             free = self.tensor(free)
-        self._count(1, num_iters)
-        out, _ = batched.masked_solve(poses, self.tensor(mask), free,
-                                      self.edges, self.cfg, num_iters,
-                                      self.plan)
+        out, _ = self.device_solve(poses, self.tensor(mask), free,
+                                   num_iters)
         return out
 
     def device_solve(self, poses, active, free_node, num_iters: int):
         """``(poses, cost)`` of a masked solve whose masks are device
-        tensors, left on the device (the fused engines' solves)."""
-        self._count(1, num_iters)
+        tensors, left on the device (the fused engines' commits)."""
+        self._count(1, num_iters, 1)
         return batched.masked_solve(poses, active, free_node, self.edges,
                                     self.cfg, num_iters, self.plan)
 
-    def _count(self, n: int, num_iters: int) -> None:
+    def _count(self, n: int, num_iters: int, calls: int) -> None:
         self.solves += n
         self.iterations += n * num_iters
+        self.calls += calls
 
 
 class LayeringManager:
@@ -485,14 +508,15 @@ def plots_available(logger: RunLogger) -> bool:
 
 def log_engine(logger: RunLogger, mgr, wall: float) -> None:
     """The ``[engine]`` record of a run: the engine, its short solves,
-    their LM iterations, the fused engine's chunks and the manager's wall
+    their ``lm_fixed_iters`` calls (a folded batch is one), their LM
+    iterations, the fused engine's chunks and the manager's wall
     seconds."""
     chunks = getattr(mgr, "chunks", None)
     logger.log("engine", device=str(mgr.ss.dev),
                linear_solver=mgr.eval_cfg.linear_solver,
                dtype=mgr.eval_cfg.dtype, fused=chunks is not None,
                chunks=0 if chunks is None else chunks,
-               short_solves=mgr.ss.solves,
+               short_solves=mgr.ss.solves, calls=mgr.ss.calls,
                lm_iterations=mgr.ss.iterations, wall_s=wall)
 
 

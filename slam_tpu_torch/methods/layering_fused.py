@@ -9,7 +9,10 @@ whole decision loop runs on the device, and the host only enqueues:
   ``(L,)`` -- "create a layer" is writing into slot ``num_layers``.
 * Per candidate edge, the reference's evaluations (L_e(0), L_i, L_e(k),
   L_ij for the top-3 UCT layers; ``layer_manager.cpp:352-385``) are 10
-  short solves run in turn, their costs kept as one (10,) device tensor.
+  short solves folded into one ``lm_fixed_iters`` call over 10 lanes
+  (``ShortSolves.device_costs``; its stacked plan built before the first
+  chunk), their costs one (10,) device tensor; only the PCG eval runs
+  them one call each (ROADMAP A19a).  The windowed commit is one solve.
 * UCT top-k, the conflict deltas, split or assign, the windowed commit
   (``layer_manager.cpp:137-179``), the EMA residual and the reward
   (``layer_manager.cpp:450-461``) are tensors selected with
@@ -22,9 +25,9 @@ whole decision loop runs on the device, and the host only enqueues:
 
 Recomputing L_i instead of caching it is exact: a layer's poses change
 only when it is the assignment target, which is when the host engine
-drops its cache entry.  Dropped TPU workarounds: the width-4 vmap of the
-evaluations (``EVAL_CHUNK``) with its two padding solves, and the one-hot
-matmul selects (``_sel``).
+drops its cache entry.  Dropped TPU workarounds: the width-4 chunks of
+the evaluations' ``vmap`` (``EVAL_CHUNK``) with its two padding lanes,
+and the one-hot matmul selects (``_sel``).
 """
 
 from __future__ import annotations
@@ -43,6 +46,10 @@ from slam_tpu_torch.methods.layering import LayeringOutput, ShortSolves, \
 from slam_tpu_torch.utils.logging import RunLogger
 
 Tensor = torch.Tensor
+
+#: Candidate evaluations per closure: L_e(0), then L_i, L_e(k) and L_ij of
+#: each of the top 3 UCT layers.
+NUM_SPECS = 10
 
 
 class _ScanState(NamedTuple):
@@ -124,7 +131,7 @@ def _fused_chunk(state: _ScanState, consts: _Consts, xs: list,
     (C, 2)) on the host.  Enqueues every candidate's work and reads
     nothing back; returns the new state and the stacked outputs."""
     ss = consts.ss
-    edges, free_first = ss.edges, ss.free_first.node
+    edges = ss.edges
     dtype, dev = ss.dtype, ss.dev
     L = cfg.max_layers
     N = state.poses.shape[1]
@@ -156,14 +163,13 @@ def _fused_chunk(state: _ScanState, consts: _Consts, xs: list,
         tk_poses = s.poses.index_select(0, topk)         # (3, N, 3)
         tk_masks = s.masks.index_select(0, topk)         # (3, E)
         base = torch.maximum(odo, extra)
-        specs = [(s.poses[0], base)]                                # L_e(0)
-        specs += [(tk_poses[t], torch.maximum(odo, tk_masks[t]))
-                  for t in range(3)]                                # L_i
-        specs += [(tk_poses[t], base) for t in range(3)]            # L_e(k)
-        specs += [(tk_poses[t], torch.maximum(base, tk_masks[t]))
-                  for t in range(3)]                                # L_ij
-        costs = torch.stack([ss.device_solve(p, act, free_first, iters)[1]
-                             for p, act in specs])
+        poses_b = torch.cat([s.poses[:1], tk_poses, tk_poses, tk_poses])
+        actives_b = torch.cat([
+            base[None],                                             # L_e(0)
+            torch.maximum(odo, tk_masks),                           # L_i
+            base.expand(3, -1),                                     # L_e(k)
+            torch.maximum(base, tk_masks)])                         # L_ij
+        costs = ss.device_costs(poses_b, actives_b, iters)
         Le0, Li, Lek, Lij = costs[0], costs[1:4], costs[4:7], costs[7:10]
 
         # -- conflict decision (layer_manager.cpp:388-431) -----------------
@@ -282,7 +288,8 @@ class FusedLayeringManager:
         self.log = logger or RunLogger()
         self.checkpoint_path = checkpoint_path
         self.ss, self.scan_chunk = fc.setup_eval_solver(
-            self.graph, cfg, solver or SolverConfig(), device)
+            self.graph, cfg, solver or SolverConfig(), device,
+            widths=(NUM_SPECS,))
         self.eval_cfg = self.ss.cfg
         self.loop_indices = np.where(self.graph.edge_type != ODOMETRY_EDGE)[0]
         self.ij = self.graph.edges_ij

@@ -13,7 +13,11 @@ fixed-size device tensors:
 Per candidate edge, the device work mirrors the host's call pattern: the
 3-way split check (``:173-211``), the commit solve on the child's window
 or on the full layer (``:500-565`` / ``:457-498``), selected by
-``did_split``, and the 2-solve reward (``:293-339``).  UCT selection with
+``did_split``, and the 2-solve reward (``:293-339``).  The split check's
+3 solves and the reward's 2 are each one ``lm_fixed_iters`` call folded
+over their lanes (``ShortSolves.device_costs``; the stacked plans of
+widths 3 and 2 built before the first chunk), the commit one solve; only
+the PCG eval runs them one call each (ROADMAP A19a).  UCT selection with
 unvisited-first (``:132-171``), the Mahalanobis gate (``:388-455``) and
 the parent-chain backprop (``:624-641``, exactly L steps of pointer
 chasing) are tensors too; the host reads nothing inside a chunk.  The
@@ -106,9 +110,10 @@ def _fused_chunk(state: _TreeState, consts: _Consts, xs: list,
 
     def costs(poses, actives):
         """One-iteration solve costs from one start point (the host's
-        ``_eval_costs`` batches; ``evaluate_layer_cost`` semantics)."""
-        return [ss.device_solve(poses, act, free_all, 1)[1]
-                for act in actives]
+        ``_eval_costs`` batches; ``evaluate_layer_cost`` semantics), one
+        folded call over the lanes."""
+        return ss.device_costs(poses.expand(len(actives), -1, -1),
+                               torch.stack(actives), 1).unbind()
 
     s, rows = state, []
     for eidx, (a, b) in zip(xs[0].tolist(), xs[1].tolist()):
@@ -263,7 +268,8 @@ class FusedMctsManager:
         self.log = logger or RunLogger()
         self.checkpoint_path = checkpoint_path
         self.ss, self.scan_chunk = fc.setup_eval_solver(
-            self.graph, cfg, solver or SolverConfig(), device)
+            self.graph, cfg, solver or SolverConfig(), device,
+            widths=(3, 2))
         self.eval_cfg = self.ss.cfg
         self.loop_indices = np.where(self.graph.edge_type != ODOMETRY_EDGE)[0]
         self.ij = self.graph.edges_ij

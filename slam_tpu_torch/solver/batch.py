@@ -1,19 +1,29 @@
-"""B problems in one LM solve: the per-seed batch and the chain batch.
+"""B problems in one LM solve: the per-seed batch, the chain batch and
+the candidate batch.
 
 Port of the JAX package's batched solves: B seeds' problems of one dataset
 (``bench.py``, ``scripts/bench_variants.py``), stacked
 (``jax.tree.map(jnp.stack)``) and run as one ``jax.vmap(lm_fixed_iters)``;
-and the DCS rescue's consensus round (``_chain_solve_batch`` in
+the DCS rescue's consensus round (``_chain_solve_batch`` in
 ``slam_tpu/methods/global_solve.py``), ``jax.vmap(lm_solve)`` over C
-chains' active masks of one problem.  Here stacking is concatenation:
+chains' active masks of one problem; and a method-3/4 manager step's
+candidate evaluations (``slam_tpu/methods/batched.py``, the fused engines'
+``vmap`` over their specs), ``jax.vmap(lm_fixed_iters)`` over B
+candidates' start poses, active masks and free masks of one problem.
+Here stacking is concatenation:
 
 - the edge set is one :class:`EdgeSet` of B*E edges over B*N nodes,
   problem b's edges at ``[b*E, (b+1)*E)`` with endpoints offset by
   ``b*N``, each seed's edges padded to E with inactive ones
   (:func:`seed_batch`), or C copies of one edge set that differ only in
   ``active`` (:func:`chain_batch`; a round sets the masks with
-  ``edges._replace(active=...)``, so no plan is rebuilt);
-- the free mask is each problem's, stacked;
+  ``edges._replace(active=...)``, so no plan is rebuilt), or B such
+  copies whose start poses and free masks differ too
+  (:func:`candidate_plan`, built once per width and kept; each call sets
+  the poses and the masks);
+- the free mask is each problem's, stacked (a node that no active edge
+  of its lane touches is pinned by the assembly, lane by lane, as in a
+  single solve);
 - the Schur partition holds each problem's (``build_slots(pad_shapes=...)``,
   the maxima of ``partition_stats``, for seeds) as B*P interior blocks
   and B separators of ``D*ns`` (``schur.partition_from_slots(seeds=B)``),
@@ -195,19 +205,67 @@ def chain_batch(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
     """``chains`` copies of one problem and its plan (the problem's Schur
     partition stacked, or the dense batch plan), built once for every
     round of a rescue."""
-    _check_solver(cfg)
     C = chains
-    es = stack_edges(edges, C)
-    if cfg.linear_solver == "schur":
-        plan = schur.partition_from_slots(
-            stack_slots([partition.slots] * C), dtype=poses0.dtype,
-            device=poses0.device, seeds=C)
-    else:
-        plan = linear.dense_plan(es, seeds=C)
+    plan = candidate_plan(edges, cfg, partition, C)
     return ChainBatch(
         poses0=poses0.unsqueeze(0).repeat(C, 1, 1),
         switches0=switches0.unsqueeze(0).repeat(C, 1),
-        edges=es, free=FreeMask(node=free.node.repeat(C)), partition=plan)
+        edges=plan.edges, free=FreeMask(node=free.node.repeat(C)),
+        partition=plan.partition)
+
+
+class CandidatePlan(NamedTuple):
+    """The plan of B candidate evaluations of one problem for
+    :func:`lm_fixed_iters_candidates`: B copies of its edge set, whose
+    ``active`` masks each call sets, and the stacked partition.  Built
+    once per width (its edge set and plan read the host) and kept."""
+
+    edges: EdgeSet        # B*E edges over B*N nodes
+    partition: object     # SchurPartition or linear.DenseBatchPlan, seeds=B
+
+    @property
+    def lanes(self) -> int:
+        return self.partition.seeds
+
+
+def candidate_plan(edges: EdgeSet, cfg: SolverConfig, partition,
+                   lanes: int) -> CandidatePlan:
+    """``lanes`` copies of ``edges`` and of the problem's plan: its Schur
+    partition stacked (``partition`` is the single problem's), or the
+    dense batch plan of the copies."""
+    _check_solver(cfg)
+    es = stack_edges(edges, lanes)
+    if cfg.linear_solver == "schur":
+        plan = schur.partition_from_slots(
+            stack_slots([partition.slots] * lanes),
+            dtype=edges.meas.dtype, device=edges.meas.device, seeds=lanes)
+    else:
+        plan = linear.dense_plan(es, seeds=lanes)
+    return CandidatePlan(edges=es, partition=plan)
+
+
+def lm_fixed_iters_candidates(poses_b: Tensor, actives_b: Tensor,
+                              free_b: Tensor, cfg: SolverConfig,
+                              num_iters: int,
+                              plan: CandidatePlan) -> LMResult:
+    """``num_iters`` LM iterations of each of B candidates of one problem,
+    no host read inside, as ``jax.vmap(lm_fixed_iters)`` runs them:
+    ``poses_b`` (B, N, D) their start poses, ``actives_b`` (B, E) their
+    edge masks, ``free_b`` (B, N) their free masks (1 = free); every
+    switch 1.  Shapes of the result as :func:`lm_fixed_iters_batch`."""
+    B, N, dim = poses_b.shape
+    if plan.lanes != B or actives_b.shape != (B, plan.edges.num_edges // B) \
+            or free_b.shape != (B, N):
+        raise ValueError(f"{B} candidates of {N} nodes (masks "
+                         f"{tuple(actives_b.shape)}, free masks "
+                         f"{tuple(free_b.shape)}) do not match the plan's "
+                         f"{plan.lanes} lanes of {plan.edges.num_edges} "
+                         "edges")
+    active = actives_b.reshape(-1).to(plan.edges.active.dtype)
+    return lm_fixed_iters_batch(
+        poses_b, torch.ones_like(actives_b, dtype=poses_b.dtype),
+        plan.edges._replace(active=active),
+        FreeMask(node=free_b.reshape(-1)), cfg, num_iters, plan.partition)
 
 
 def lane(res: LMResult, k: int) -> LMResult:

@@ -12,8 +12,11 @@ method 2's joint system (``robust="sc"``) and solve to 0 otherwise.
   unknown per edge after the node-major pose unknowns.  On a batch of B
   problems (:class:`DenseBatchPlan`, ``solver/batch.py``) each problem's
   pose-only system is its own matrix of a ``(B, D*n, D*n)`` stack, all
-  assembled by one launch and factored by one batched Cholesky, as
-  ``jax.vmap`` of the JAX ``dense_solve`` factors each.
+  assembled by one launch and factored one matrix at a time into one
+  stack (:func:`cholesky_each`: on the H100 B single calls took 0.24-0.76
+  of the batched call's time at 3135^2 and 3684^2, B = 2-10; PERF.md), so
+  each problem's factor is its own alone to the bit, as ``jax.vmap`` of
+  the JAX ``dense_solve`` factors each.
 - ``eliminate_switches``: the exact elimination of the diagonal switch
   block, so that method 2 rides the pose-only Schur solver; its per-node
   corrections are one grouped ``scatter_add_rows`` launch.
@@ -144,6 +147,27 @@ def dense_plan(edges: EdgeSet, switches: bool = False,
                      row_sel)
 
 
+def cholesky_each(Hs: Tensor) -> tuple[Tensor, Tensor]:
+    """``cholesky_ex`` of each matrix of a ``(B, n, n)`` stack, one call a
+    matrix, into one stack of factors (column-major, as the batched call
+    returns them) and ``(B,)`` infos: each factor is its matrix's factor
+    alone to the bit."""
+    L = torch.empty_like(Hs).mT
+    info = torch.empty(Hs.shape[0], dtype=torch.int32, device=Hs.device)
+    for k in range(Hs.shape[0]):
+        torch.linalg.cholesky_ex(Hs[k], out=(L[k], info[k]))
+    return L, info
+
+
+def cho_solve_stack(L: Tensor, b: Tensor) -> Tensor:
+    """``A^-1 b`` for each factor ``L`` of a ``(B, n, n)`` stack and its
+    ``(B, n, k)`` right-hand sides, by two batched triangular solves:
+    ``cholesky_solve`` takes cuSOLVER's ``potrsBatched`` on a stack, which
+    ran 9x slower on an H100 at six 3684^2 systems (PERF.md, PR 11)."""
+    return torch.linalg.solve_triangular(
+        L.mT, torch.linalg.solve_triangular(L, b, upper=False), upper=True)
+
+
 def _finish_dense(H: Tensor, rhs: Tensor, n: int, D: int, E: int,
                   switches: bool) -> Update:
     """Solve ``H x = rhs``, or each system of a ``(B, D*n, D*n)`` stack
@@ -153,18 +177,13 @@ def _finish_dense(H: Tensor, rhs: Tensor, n: int, D: int, E: int,
     dscale = 1.0 / torch.sqrt(torch.clamp(
         torch.diagonal(H, dim1=-2, dim2=-1), min=1e-12))
     Hs = H * dscale[..., :, None] * dscale[..., None, :]
-    L, info = torch.linalg.cholesky_ex(Hs)
     b = (rhs * dscale)[..., None]
     if H.dim() == 2:
+        L, info = torch.linalg.cholesky_ex(Hs)
         y = torch.cholesky_solve(b, L)
     else:
-        # A stack with one right-hand side each: cholesky_solve takes
-        # cuSOLVER's potrsBatched there, which ran 9x slower on an H100
-        # than these two batched triangular solves at six 3684^2 systems
-        # (PERF.md, the rescue's dense batch).
-        y = torch.linalg.solve_triangular(
-            L.transpose(-1, -2),
-            torch.linalg.solve_triangular(L, b, upper=False), upper=True)
+        L, info = cholesky_each(Hs)
+        y = cho_solve_stack(L, b)
     sol = nan_unless_factored(y[..., 0] * dscale, info,
                               H.shape[0] if H.dim() == 3 else None)
     ds = sol[D * n:] if switches else torch.zeros(

@@ -31,7 +31,10 @@ A partition built with ``seeds=B`` (``solver/batch.py``) holds B seeds'
 partitions of one padded shape, the counterpart of the JAX package's
 ``vmap`` over stacked partitions: its interiors are B*P blocks, and its
 separator is B systems of ``D*ns``, one per seed (never one system of
-``B*D*ns``); each launch of a solve serves every seed.
+``B*D*ns``), each factored and solved alone on the native path
+(``linear.cholesky_each``, ``linear.cho_solve_stack``: the batched
+cuSOLVER calls were the slower on the H100 at these sizes, PERF.md);
+every other launch of a solve serves every seed.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ from slam_tpu_torch.ops.gather import SegmentPlan, gather_rows, \
     scatter_add_groups, scatter_add_rows, segment_plan
 from slam_tpu_torch.solver import blocked_chol as bc
 from slam_tpu_torch.solver.linear import Update, _DIAG_MAX, _DIAG_MIN, \
-    nan_unless_factored
+    cho_solve_stack, cholesky_each, nan_unless_factored
 from slam_tpu_torch.solver.linearize import BlockSystem
 from slam_tpu_torch.solver.problem import EdgeSet
 
@@ -730,9 +733,14 @@ def schur_solve(system: BlockSystem, edges: EdgeSet, part: SchurPartition,
         # vmap): its panels never take the micro kernel.
         sfac = bc.blocked_cholesky(S, panel=panel, inner=panel_inner)
         x_sep = bc.cho_solve_blocked(sfac, rhs_s)
-    else:
+    elif part.seeds is None:
         Ls, info_s = torch.linalg.cholesky_ex(S)
         x_sep = torch.cholesky_solve(rhs_s[..., None], Ls)[..., 0]
+    else:
+        # One separator per problem, each factored alone (PERF.md: the
+        # batched call is slower on an H100 at these sizes).
+        Ls, info_s = cholesky_each(S)
+        x_sep = cho_solve_stack(Ls, rhs_s[..., None])[..., 0]
 
     x_loc = (gather_rows(x_sep.reshape(nst, D), part.loc_gather)
              .reshape(P, nsk, D) * part.loc_mask[:, :, None]

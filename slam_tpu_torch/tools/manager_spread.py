@@ -163,6 +163,7 @@ def run_cell(name: str, device: str = "cuda", dtype: str | None = None,
                    fused=eng["fused"] == "True", chunks=int(eng["chunks"]),
                    wall_s=wall, engine_wall_s=float(eng["wall_s"]),
                    short_solves=int(eng["short_solves"]),
+                   calls=int(eng["calls"]),
                    lm_iterations=int(eng["lm_iterations"]))
         if cell in RECORD_CELLS:
             row.update(_record(name, method, lines, poses, golden))
@@ -336,10 +337,11 @@ def fused_solve_inputs(graph, device, dtype: str, candidates: int) -> tuple:
     """The fused method-3 engine's short-solve inputs, as
     :func:`short_solve_inputs` gives the host engines': the fused engine
     with the CLI's defaults on ``graph`` (its Schur plan on the card), cut
-    to its first ``candidates`` closures.  Returns ``(ss, cases)``:
-    ``"candidate"``, the last candidate evaluation (a spec's edge mask,
-    every node but node 0 free), and ``"window"``, the last windowed
-    commit."""
+    to its first ``candidates`` closures.  Returns ``(ss, cases)``, each
+    case ``(lm_fixed_iters arguments, plan)``: ``"candidate"``, the last
+    candidate step's folded evaluations (its 10 lanes' edge masks, every
+    node but node 0 free, on the stacked plan), and ``"window"``, the
+    last windowed commit on the single plan."""
     import torch
 
     from slam_tpu_torch import cli
@@ -352,19 +354,31 @@ def fused_solve_inputs(graph, device, dtype: str, candidates: int) -> tuple:
     mgr = layering.make_manager(graph, cfg, RunLogger(echo=False), device,
                                 fused="on")
     ss, seen = mgr.ss, {}
-    solve = ss.device_solve
+    costs, solve = ss.device_costs, ss.device_solve
 
-    def record(poses, active, free, num_iters):
-        kind = "candidate" if free is ss.free_first.node else "window"
-        seen[kind] = (poses, active, free)
+    def record_costs(poses_b, actives_b, num_iters):
+        seen["candidate"] = (poses_b, actives_b)
+        return costs(poses_b, actives_b, num_iters)
+
+    def record_solve(poses, active, free, num_iters):
+        seen["window"] = (poses, active, free)
         return solve(poses, active, free, num_iters)
 
-    ss.device_solve = record
+    ss.device_costs, ss.device_solve = record_costs, record_solve
     mgr.loop_indices = mgr.loop_indices[:candidates]
     mgr.run()
-    cases = {kind: (poses, torch.ones_like(active),
-                    ss.edges._replace(active=active), FreeMask(node=free))
-             for kind, (poses, active, free) in seen.items()}
+    poses_b, actives_b = seen["candidate"]
+    B, n = poses_b.shape[:2]
+    batch = ss.batch_plan(B)
+    cases = {"candidate": (
+        (poses_b.reshape(B * n, -1), torch.ones_like(actives_b).reshape(-1),
+         batch.edges._replace(active=actives_b.reshape(-1)),
+         FreeMask(node=ss.free_first.node.repeat(B))), batch.partition)}
+    if "window" in seen:
+        poses, active, free = seen["window"]
+        cases["window"] = ((poses, torch.ones_like(active),
+                            ss.edges._replace(active=active),
+                            FreeMask(node=free)), ss.plan)
     return ss, cases
 
 
