@@ -56,7 +56,10 @@ the script exits non-zero and prints no result line):
      dense solver (six 3684 x 3684 matrices) recorded and replayed as
      above, the linearisation on the chains' masks held to its plain
      version; ``micro_chol_inv_folded`` on the chain batch's real first
-     and trailing panels folded over its six chains;
+     and trailing panels folded over its six chains; one batched iteration
+     of that chain batch, and of the INTEL+50 seed batch of seeds 0-7, on
+     PCG (3 CG iterations) and on the Woodbury solver, recorded and
+     replayed as above;
 3. the main path through the CLI, ``INTEL 50 1 --seed 42`` (auto init,
    auto solver = Schur, rescue on, float32): the output files, the launch
    count of every kernel during that run, and the ATE against the golden
@@ -109,6 +112,39 @@ the script exits non-zero and prints no result line):
    first round's float32 batched solve on the Schur and the dense solver:
    wall and launches per batched iteration, and (with the kernels'
    times, under torch.profiler) device ms and busy share;
+6g. ``pcg_batch``: the batched PCG (``linear.pcg_solve(seeds=)``, each
+   lane its own CG scalars and stopping test): (a) float64, the rescue's
+   first round (the six chains under the masks the Schur rescue builds)
+   on PCG, ``lm_solve_batch`` capped at ``PCG_ROUND_ITERS`` LM
+   iterations, and the chains alone one after another, in turns: each
+   lane within ``RESCUE_F64_RTOL`` in cost and ``RESCUE_F64_POSE_ATOL``
+   in poses of its chain alone, with equal iterations, accepted steps,
+   convergence and CG counts; the launches of a batched iteration equal
+   to one chain's (every CG run to ``PCG_FIXED_CG``), at most
+   ``PCG_LAUNCH_LIMIT`` gathers and scatters an iteration of the CG loop
+   (those it runs after its lanes stopped and before its next host check
+   included), and the slowest lane's, the lanes' and the loop's CG
+   iterations printed; (b) float32,
+   ``scripts/bench_pcg.py``'s batch (INTEL+50 x seeds 0-7, the
+   tridiagonal preconditioner, rtol 1e-6, 100 CG iterations,
+   ``BATCH_ITERS`` LM iterations): every seed meets its gate (initial
+   cost > 2, final < 0.6 x initial); CG iterations per seed, ms per
+   iteration of the CG loop, peak allocated memory, and LM it/s of the batch
+   against ``LANE_ALONE_SEEDS`` seeds alone over ``LANE_TIMED_ITERS``
+   iterations, in turns (device ms and busy share a batched iteration
+   with the kernels' times, on PCG of one LM iteration cut to
+   ``PCG_PROFILE_CG`` CG iterations); (c) the managers' PCG eval folded: the
+   float64 fused runs of methods 3 and 4 cut to ``PCG_FOLD_CANDIDATES``
+   closures, the last batch of each width (10; 3 and 2) held as phase
+   10d (a) holds the Schur and dense evals; M3500+50 method 4 on the
+   host engine (PCG eval above 2048 nodes) cut to
+   ``HOST_PCG_CANDIDATES`` closures: wall, calls and solves per
+   candidate;
+6h. ``woodbury_batch``: the batched Woodbury solver
+   (``build_woodbury_ops(seeds=)``): (a) as 6g (a), to convergence; (b)
+   as 6g (b) on ``scripts/bench_woodbury.py``'s batch (each seed's
+   low-rank edges padded to the seeds' largest count), its gate printed,
+   not raised (the float32 correction cancels; (a) holds it in float64);
 7. method 2 (switchable constraints), float32:
    (a) ``method2_path``: ``INTEL 50 2 --seed 42`` through the CLI (auto
    solver = Schur with the switches eliminated), and again with
@@ -166,7 +202,8 @@ the script exits non-zero and prints no result line):
    streams as phase 9 holds the host engines, gated at
    ``FUSED_MANAGER_DIFF_GATES``; then the PCG eval, the stated exception,
    on INTEL+50 method 4 cut to ``FUSED_PCG_CANDIDATES`` closures, with its
-   host reads per candidate;
+   calls and host reads per candidate (fewer than
+   ``FUSED_PCG_LOOPED_READS``, the parent's one call an evaluation);
    (b) ``fused_vs_host``: ``CSAIL 50 4 --seed 0`` in float64 with the
    dense eval on the fused and the host engine: the same assignments,
    layers and chosen layers, poses within ``FUSED_VS_HOST_ATOL``;
@@ -196,7 +233,8 @@ the script exits non-zero and prints no result line):
 11. the last modules (Woodbury, sweeps, the distributed solvers,
    profiling):
    (a) ``woodbury_path``: ``INTEL 50 1 --seed 42 --linear-solver woodbury
-   --dtype float64`` through the CLI, ATE below ``ATE_GATE_M``; 50
+   --dtype float64`` through the CLI (the rescue's rounds batched, as
+   ``[rescue_batch]`` (b) prints them), ATE below ``ATE_GATE_M``; 50
    ``lm_fixed_iters`` of plain DCS on the Woodbury solver in float64,
    within ``WOODBURY_REF_COST_RTOL`` of its float64 JAX reference, and in
    float32, gated on finite output only (its correction cancels);
@@ -462,6 +500,31 @@ SEED_BATCH_F32_RTOL = {
 # difference: one batched factorisation against another).
 RESCUE_F64_RTOL = 1e-9
 RESCUE_F64_POSE_ATOL = 1e-8
+# [pcg_batch] and [woodbury_batch] (a): the rescue's first round on PCG and
+# Woodbury at those gates.  PCG's rounds are capped at PCG_ROUND_ITERS LM
+# iterations: a chain's float64 LM iteration runs ~145 CG iterations at
+# ~4 ms each (host-bound, PERF.md section 5), and the chains alone run in
+# turns with the batch.  Launches of a batched LM iteration against one
+# chain's: PCG with every CG run to PCG_FIXED_CG iterations (rtol 0).
+PCG_ROUND_ITERS = 5
+PCG_FIXED_CG = 16
+# (b): LM it/s of the float32 seed batch against LANE_ALONE_SEEDS seeds
+# alone, in turns, over LANE_TIMED_ITERS iterations (the gate's run takes
+# BATCH_ITERS).
+LANE_TIMED_ITERS = 5
+LANE_ALONE_SEEDS = 2
+# (c): the fused runs whose last batches the PCG eval's lanes are held to
+# alone, cut to this many closures; the host engine above 2048 nodes
+# (M3500+50 method 4, PCG eval) cut to HOST_PCG_CANDIDATES.
+PCG_FOLD_CANDIDATES = 8
+HOST_PCG_CANDIDATES = 4
+# (b)'s device time of the PCG batch: one LM iteration of this many CG
+# iterations under the profiler.
+PCG_PROFILE_CG = 16
+# The fused PCG eval's host reads per candidate while every evaluation was
+# its own call ([fused_pcg] on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md);
+# the fold must read less.
+FUSED_PCG_LOOPED_READS = 28.25
 KERNEL_INFO = {  # name: (source, TPU kernel it replaces, phase that runs it)
     "gather_rows": ("slam_tpu_torch/csrc/gather.cu",
                     "slam_tpu/ops/pallas_gather.py:56", "main_path"),
@@ -503,6 +566,9 @@ PHASE_KERNELS = {
                      "fused_linearize_se2"),
     "rescue_batch_dense": ("gather_rows", "scatter_add_rows",
                            "fused_linearize_se2"),
+    **{phase: ("gather_rows", "scatter_add_rows", "fused_linearize_se2")
+       for phase in ("pcg_batch", "pcg_batch_seeds", "pcg_eval_host",
+                     "woodbury_batch", "woodbury_batch_seeds")},
     **{phase: ("gather_rows", "scatter_add_rows", "fused_linearize_se2")
        for phase in (*MANAGER_PHASES, "fused_managers", "fused_vs_host",
                      "fused_m3500", "manager_fold", "woodbury_path", "sweep", "dist_edge",
@@ -1185,7 +1251,32 @@ def check_chain_batches(device, dtype):
     check_short_solves("INTEL-chains", dense.prob.scfg,
                        dense.chains.partition, {"dense": dense.flat_args},
                        dtype)
+    check_lane_batches(device, dtype, schur.masks)
     return schur
+
+
+def check_lane_batches(device, dtype, masks) -> None:
+    """Phase 2 on the PCG and Woodbury batches: one batched iteration of
+    the rescue's chain batch under ``masks`` and of the seed batch of
+    ``scripts/bench_pcg.py`` / ``bench_woodbury.py``, each on both
+    solvers (PCG cut to 3 CG iterations), through
+    :func:`check_short_solves`."""
+    from slam_tpu_torch.tools.problems import intel50_chains, \
+        intel50_seed_batch
+
+    name = str(dtype).replace("torch.", "")
+    for solver in ("pcg", "woodbury"):
+        c = intel50_chains(device, name, solver, masks=masks)
+        s = intel50_seed_batch(device, dtype, solver)
+        b = s.batch
+        seeds = (b.poses0.reshape(-1, b.poses0.shape[-1]),
+                 b.switches0.reshape(-1), b.edges, b.free)
+        for label, cfg, plan, args in (
+                ("INTEL-chains", c.prob.scfg, c.chains.partition,
+                 c.flat_args),
+                ("INTEL-seeds", s.cfg, s.plan, seeds)):
+            check_short_solves(label, cfg.replace(pcg_max_iters=3), plan,
+                               {solver: args}, dtype)
 
 
 def run_cli_path(phase: str, run) -> tuple[dict, float, np.ndarray]:
@@ -1486,16 +1577,15 @@ def timed_alone(case, cfg, iters: int) -> tuple:
             torch.cuda.max_memory_allocated() - held)
 
 
-def batch_device_ms(run, wall_ms: float) -> dict:
+def batch_device_ms(run, wall_ms: float,
+                    n: int = SEED_BATCH_PROFILE_ITERS) -> dict:
     """Device ms and busy share per batched iteration: the kernels'
-    device events under torch.profiler over ``run(n)``, ``n =
-    SEED_BATCH_PROFILE_ITERS`` batched iterations, against the unprofiled
-    wall per iteration."""
+    device events under torch.profiler over ``run(n)``, ``n`` batched
+    iterations, against the unprofiled wall per iteration."""
     from torch.profiler import ProfilerActivity, profile
 
     from slam_tpu_torch.tools.profile_lm import device_us
 
-    n = SEED_BATCH_PROFILE_ITERS
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run(n)
@@ -1776,6 +1866,317 @@ def phase_rescue_batch(device, smi: str, timings: list) -> dict:
     return {"rescue_batch": counts, "rescue_batch_dense": dense_counts}
 
 
+@contextlib.contextmanager
+def cg_counts(out: list):
+    """Append each ``pcg_solve`` call's CG count (a (B,) tensor in a batch,
+    0-d alone) of the run inside to ``out``, left on the device, and one
+    ``None`` per matvec: per iteration the CG loop ran, those after its
+    lanes stopped and before its next host check included."""
+    from slam_tpu_torch.solver import linear
+
+    solve, matvec = linear.pcg_solve, linear.matvec
+
+    def recorded(*args, **kw):
+        dx, iters = solve(*args, **kw)
+        out.append(iters)
+        return dx, iters
+
+    def counted(*args, **kw):
+        out.append(None)
+        return matvec(*args, **kw)
+
+    linear.pcg_solve, linear.matvec = recorded, counted
+    try:
+        yield out
+    finally:
+        linear.pcg_solve, linear.matvec = solve, matvec
+
+
+def cg_fields(counts: list, launches: dict) -> dict:
+    """The CG iterations of the recorded calls: each call's slowest lane
+    (``batched_cg_iterations``), the lanes' sum, and the iterations the
+    loop ran (``loop_cg_iterations``), with the launches per loop
+    iteration."""
+    its = [c for c in counts if c is not None]
+    loop = len(counts) - len(its)
+    return {"batched_cg_iterations": sum(int(c.max()) for c in its),
+            "lane_cg_iterations": sum(int(c.sum()) for c in its),
+            "loop_cg_iterations": loop,
+            "launches_per_loop_cg_iter": json.dumps(
+                {k: v / loop for k, v in launches.items()})}
+
+
+def chain_lanes(phase: str, solver: str, masks, device, smi: str,
+                cap: int | None) -> dict:
+    """(a) of [pcg_batch] and [woodbury_batch]: float64, the rescue's first
+    round of INTEL+50 seed 42 (its six chains under ``masks``, the masks
+    the Schur rescue builds from its plain solve) on ``solver``, capped
+    at ``cap`` LM iterations (None: to convergence).  The batched
+    ``lm_solve`` and the chains alone one after another (the parent's
+    loop), in turns (batch, chains, chains, batch); each lane held to its
+    chain alone at the [rescue_batch] gates with equal iterations,
+    accepted steps, convergence and CG counts; the launches of a batched
+    iteration equal to one chain's (PCG: every CG run to
+    ``PCG_FIXED_CG``), and on PCG at most ``PCG_LAUNCH_LIMIT`` gathers and
+    scatters an iteration of the CG loop.  Returns the batched run's
+    launch counts."""
+    from slam_tpu_torch import ops
+    from slam_tpu_torch.solver.batch import lane, lm_solve_batch
+    from slam_tpu_torch.solver.lm import lm_solve
+    from slam_tpu_torch.tools.problems import intel50_chains
+
+    t0 = time.perf_counter()
+    case = intel50_chains(device, "float64", solver, masks=masks)
+    prob, ch = case.prob, case.chains
+    cfg = prob.scfg if cap is None else prob.scfg.replace(max_iterations=cap)
+    part = ch.partition
+    alone_edges = [prob.edges._replace(active=torch.as_tensor(
+        m, dtype=prob.poses0.dtype, device=device)) for m in case.masks]
+    setup = time.perf_counter() - t0
+
+    def batch():
+        cg = []
+        with cg_counts(cg):
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            res = lm_solve_batch(*case.args, cfg, part)
+            res.iterations.tolist()  # synchronises
+            wall = time.perf_counter() - t0
+        return res, wall, ops.launch_counts(), cg
+
+    def chains():
+        out, t0 = [], time.perf_counter()
+        for es in alone_edges:
+            out.append(lm_solve(prob.poses0, prob.switches0, es, prob.free,
+                                cfg, partition=prob.partition))
+        float(out[-1].cost)  # synchronises
+        return out, time.perf_counter() - t0
+
+    lm_solve_batch(*case.args, cfg.replace(max_iterations=1), part)
+    lm_solve(prob.poses0, prob.switches0, alone_edges[0], prob.free,
+             cfg.replace(max_iterations=1), partition=prob.partition)
+    b1, c1, c2, b2 = batch(), chains(), chains(), batch()
+    res, counts, cg = b1[0], b1[2], b1[3]
+    rel, dp, same = [], [], []
+    for c, r in enumerate(c1[0]):
+        got = lane(res, c)
+        rel.append(abs(float(got.cost) - float(r.cost)) / abs(float(r.cost)))
+        dp.append(float((got.poses - r.poses).abs().max()))
+        same.append([int(got.iterations), int(got.accepted),
+                     bool(got.converged), int(got.lin_iters)]
+                    == [int(r.iterations), int(r.accepted),
+                        bool(r.converged), int(r.lin_iters)])
+    bitwise = [bool(torch.equal(lane(res, c).poses, r.poses))
+               for c, r in enumerate(c1[0])]
+    fixed = cfg.replace(pcg_rtol=0.0, pcg_max_iters=PCG_FIXED_CG) \
+        if solver == "pcg" else cfg
+    per_batch = iteration_launches(lambda n: lm_solve_batch(
+        *case.args, fixed.replace(max_iterations=n), part))
+    per_chain = iteration_launches(lambda n: lm_solve(
+        prob.poses0, prob.switches0, alone_edges[0], prob.free,
+        fixed.replace(max_iterations=n), partition=prob.partition))
+    extra = cg_fields(cg, counts) if solver == "pcg" else {}
+    log(phase, part="a", solver=solver, dtype="float64", chains=ch.chains,
+        max_iterations=cfg.max_iterations, setup_s=round(setup, 3),
+        lane_iterations=json.dumps(res.iterations.tolist()),
+        accepted=json.dumps(res.accepted.tolist()),
+        converged=json.dumps(res.converged.tolist()),
+        lin_iters=json.dumps(res.lin_iters.tolist()),
+        batch_wall_s=json.dumps([round(b1[1], 4), round(b2[1], 4)]),
+        chains_alone_wall_s=json.dumps([round(c1[1], 4), round(c2[1], 4)]),
+        rel_diff=json.dumps(rel), pose_diff_m=json.dumps(dp),
+        same_counts=json.dumps(same), bitwise_equal=json.dumps(bitwise),
+        gate_rel=RESCUE_F64_RTOL, gate_pose_m=RESCUE_F64_POSE_ATOL,
+        launches=json.dumps(counts),
+        launches_per_batched_iter=json.dumps(per_batch),
+        launches_per_chain_iter=json.dumps(per_chain), **extra,
+        card=json.dumps(smi))
+    if not (all(same) and max(rel) <= RESCUE_F64_RTOL
+            and max(dp) <= RESCUE_F64_POSE_ATOL):
+        raise AssertionError(f"{phase}: lanes vs chains alone: counts equal "
+                             f"{same}, rel {max(rel)}, poses {max(dp)} m")
+    if per_batch != per_chain:
+        raise AssertionError(f"{phase}: launches per batched iteration "
+                             f"{per_batch}, per chain {per_chain}")
+    if solver == "pcg":
+        per_cg = json.loads(extra["launches_per_loop_cg_iter"])
+        over = {k: v for k, v in per_cg.items()
+                if k in ("gather_rows", "scatter_add_rows")
+                and v > PCG_LAUNCH_LIMIT}
+        if over:
+            raise AssertionError(f"{phase}: launches per CG iteration of "
+                                 f"the loop {over} above {PCG_LAUNCH_LIMIT}")
+    require_launches(phase, counts)
+    return counts
+
+
+def seed_lanes(phase: str, solver: str, device, smi: str,
+               timings: list) -> dict:
+    """(b) of [pcg_batch] and [woodbury_batch]: float32, the seed batch of
+    ``scripts/bench_pcg.py`` or ``scripts/bench_woodbury.py`` (INTEL+50 x
+    seeds 0-7, ``BATCH_ITERS`` iterations): each seed's cost against
+    ``bench.py``'s gate (raised on PCG; on Woodbury printed, its f32
+    correction cancels), CG iterations per seed, wall, launches and peak
+    allocated memory; LM it/s of the batch and of ``LANE_ALONE_SEEDS``
+    seeds alone over ``LANE_TIMED_ITERS`` iterations, in turns; device ms
+    and busy share a batched iteration appended to ``timings``.  Returns
+    the batch's launch counts."""
+    from slam_tpu_torch import ops
+    from slam_tpu_torch.solver.batch import lm_fixed_iters_batch
+    from slam_tpu_torch.solver.lm import lm_fixed_iters
+    from slam_tpu_torch.tools.problems import BATCH_ITERS, \
+        intel50_seed_batch
+
+    t0 = time.perf_counter()
+    case = intel50_seed_batch(device, torch.float32, solver)
+    b, plan, cfg = case.batch, case.plan, case.cfg
+    B = b.seeds
+    alone = case.alone[:LANE_ALONE_SEEDS]
+    setup = time.perf_counter() - t0
+    lm_fixed_iters_batch(*b.args, cfg, 1, partition=plan)  # warm-up
+    for args, p in alone:
+        lm_fixed_iters(*args, cfg, 1, partition=p)
+
+    cg = []
+    with cg_counts(cg):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = lm_fixed_iters_batch(*b.args, cfg, BATCH_ITERS, partition=plan)
+        costs = res.cost.tolist()  # synchronises
+        wall = time.perf_counter() - t0
+    counts, peak = ops.launch_counts(), torch.cuda.max_memory_allocated() \
+        - held
+    costs0 = res.initial_cost.tolist()
+    ok = all(c0 > SEED_BATCH_COST0_MIN and c < SEED_BATCH_COST_FRAC * c0
+             for c, c0 in zip(costs, costs0))
+
+    n = LANE_TIMED_ITERS
+
+    def timed(run):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def run_batch():
+        lm_fixed_iters_batch(*b.args, cfg, n, partition=plan)
+
+    def run_alone():
+        for args, p in alone:
+            lm_fixed_iters(*args, cfg, n, partition=p)
+
+    walls = [timed(f) for f in (run_batch, run_alone, run_alone, run_batch)]
+    batch_wall, alone_wall = (walls[0] + walls[3]) / 2, (walls[1]
+                                                         + walls[2]) / 2
+    extra = {}
+    if solver == "pcg":
+        extra = cg_fields(cg, counts)
+        extra.update(
+            cg_iterations_per_seed=json.dumps(res.lin_iters.tolist()),
+            ms_per_loop_cg_iter=wall * 1e3 / extra["loop_cg_iterations"])
+    log(phase, part="b", solver=solver, dtype="float32", seeds=B,
+        iters=BATCH_ITERS, setup_s=round(setup, 3),
+        lowrank_per_seed=getattr(plan, "num_lowrank", None),
+        costs=json.dumps(costs), initial_costs=json.dumps(costs0),
+        accepted=json.dumps(res.accepted.tolist()),
+        gate_bench=ok, gate_raised=solver == "pcg", wall_s=round(wall, 4),
+        ms_per_batched_iter=wall * 1e3 / BATCH_ITERS,
+        peak_bytes_batch=peak,
+        launches_per_iter=json.dumps({k: v / BATCH_ITERS
+                                      for k, v in counts.items()}),
+        timed_iters=n, batch_walls_s=json.dumps([round(w, 4) for w in
+                                                 (walls[0], walls[3])]),
+        alone_walls_s=json.dumps([round(w, 4) for w in walls[1:3]]),
+        lm_it_per_s=round(B * n / batch_wall, 3),
+        alone_lm_it_per_s=round(len(alone) * n / alone_wall, 3), **extra,
+        card=json.dumps(smi))
+    if solver == "pcg" and not ok:
+        raise AssertionError(f"{phase}: seeds miss bench_pcg.py's gate: "
+                             f"{costs} from {costs0}")
+    require_launches(f"{phase}_seeds", counts)
+    # A profiler session over PCG's ~100 CG iterations an LM iteration
+    # (~33 000 device events) takes minutes: PCG's device time is taken
+    # over one LM iteration cut to PCG_PROFILE_CG CG iterations, against
+    # the same run's unprofiled wall.
+    pcfg, k = (cfg.replace(pcg_max_iters=PCG_PROFILE_CG), 1) \
+        if solver == "pcg" else (cfg, SEED_BATCH_PROFILE_ITERS)
+
+    def device_times():  # profiled in the report, after every other time
+        def run(n):
+            lm_fixed_iters_batch(*b.args, pcfg, n, partition=plan)
+
+        run(k)
+        wall_ms = timed(lambda: run(k)) * 1e3 / k
+        extra = {"cg_iterations_per_iter": PCG_PROFILE_CG} \
+            if solver == "pcg" else {}
+        log(phase, part="b", solver=solver,
+            **batch_device_ms(run, wall_ms, k), wall_ms_per_iter=wall_ms,
+            **extra, card=json.dumps(smi))
+
+    timings.append(lambda: ([], [], device_times))
+    return counts
+
+
+@functools.lru_cache(maxsize=1)
+def schur_round_masks(device):
+    """The rescue's first-round masks of INTEL+50 seed 42, built from the
+    plain float64 solve on the Schur solver, as [rescue_batch] (a) has
+    them."""
+    from slam_tpu_torch.tools.problems import intel50_chains
+
+    return intel50_chains(device, "float64").masks
+
+
+def phase_pcg_batch(device, smi: str, timings: list) -> dict:
+    """Phase 6g: the batched PCG.  (a) and (b) as :func:`chain_lanes` and
+    :func:`seed_lanes`; (c) the managers' PCG eval folded: the float64
+    fused runs' last batches of each width against each lane alone
+    (:func:`fold_lanes_f64`, cut to ``PCG_FOLD_CANDIDATES`` closures),
+    and M3500+50 method 4 on the host engine (its eval is PCG above 2048
+    nodes) cut to ``HOST_PCG_CANDIDATES`` closures: wall, calls and
+    solves per candidate.  Returns the launch counts of each path."""
+    out = {"pcg_batch": chain_lanes("pcg_batch", "pcg",
+                                    schur_round_masks(device), device, smi,
+                                    PCG_ROUND_ITERS),
+           "pcg_batch_seeds": seed_lanes("pcg_batch", "pcg", device, smi,
+                                         timings)}
+    for method in (3, 4):
+        fold_lanes_f64("pcg", method, PCG_FOLD_CANDIDATES, smi)
+    mgr = fused_manager("M3500", 50, 0, 4, fused="off")
+    mgr.loop_indices = mgr.loop_indices[:HOST_PCG_CANDIDATES]
+    _, wall, counts = run_manager(mgr)
+    n = len(mgr.loop_indices)
+    log("pcg_batch", part="c", cell="m3500_m4", engine="host",
+        eval=mgr.eval_cfg.linear_solver, candidates=n, wall_s=round(wall, 3),
+        s_per_candidate=wall / n, calls_per_candidate=mgr.ss.calls / n,
+        short_solves_per_candidate=mgr.ss.solves / n,
+        launches=json.dumps(counts), card=json.dumps(smi))
+    if mgr.eval_cfg.linear_solver != "pcg" or not \
+            mgr.ss.calls < mgr.ss.solves:
+        raise AssertionError(f"pcg_batch: M3500 host eval "
+                             f"{mgr.eval_cfg.linear_solver}, {mgr.ss.calls} "
+                             f"calls for {mgr.ss.solves} solves")
+    require_launches("pcg_eval_host", counts)
+    out["pcg_eval_host"] = counts
+    return out
+
+
+def phase_woodbury_batch(device, smi: str, timings: list) -> dict:
+    """Phase 6h: the batched Woodbury solver, (a) and (b) as
+    :func:`chain_lanes` (to convergence) and :func:`seed_lanes`.  Returns
+    the launch counts of each path."""
+    return {"woodbury_batch": chain_lanes(
+                "woodbury_batch", "woodbury", schur_round_masks(device),
+                device, smi, None),
+            "woodbury_batch_seeds": seed_lanes("woodbury_batch", "woodbury",
+                                               device, smi, timings)}
+
+
 def reference(key: str) -> dict:
     with open(os.path.join(REPO, "slam_tpu_torch", "data",
                            "reference_costs.json")) as f:
@@ -1985,7 +2386,7 @@ def phase_pcg(device, smi: str) -> dict:
         args = (prob.poses0, prob.switches0, prob.edges, prob.free)
         lm_fixed_iters(*args, prob.scfg, 1, partition=None)  # warm-up
         res, wall, counts, cost = timed_lm(args, prob.scfg, iters, None)
-        cg = res.lin_iters
+        cg = int(res.lin_iters)
         gate = M2_REF_COST_RTOL[(robust, "pcg", False)]
         rel = held_to(phase, cost, key, gate)
         per_cg = {k: n / cg for k, n in counts.items()}
@@ -2314,21 +2715,25 @@ def phase_fused_managers(smi: str) -> dict:
     require_launches(phase, total)
 
     # The PCG eval reads its CG stopping test on the host: the stated
-    # exception, counted (not refused) under the mode "warn".
+    # exception, counted (not refused) under the mode "warn"; folded, it
+    # must read less than while each evaluation was its own call.
     mgr = fused_manager("INTEL", 50, 42, 4, ("--eval-linear", "pcg"))
     mgr.loop_indices = mgr.loop_indices[:FUSED_PCG_CANDIDATES]
     syncs = []
     with chunks_under_sync_mode("warn"), count_syncs(syncs):
         _, wall, counts = run_manager(mgr)
-    if mgr.eval_cfg.linear_solver != "pcg" or not syncs:
-        raise AssertionError(f"fused_pcg: {mgr.eval_cfg.linear_solver} "
-                             f"eval, {len(syncs)} host reads")
+    reads = len(syncs) / FUSED_PCG_CANDIDATES
     log("fused_pcg", cell="intel50_m4", candidates=FUSED_PCG_CANDIDATES,
         wall_s=round(wall, 3), s_per_candidate=wall / FUSED_PCG_CANDIDATES,
         short_solves=mgr.ss.solves, calls=mgr.ss.calls,
-        lm_iterations=mgr.ss.iterations,
-        host_reads_per_candidate=len(syncs) / FUSED_PCG_CANDIDATES,
+        calls_per_candidate=mgr.ss.calls / FUSED_PCG_CANDIDATES,
+        lm_iterations=mgr.ss.iterations, host_reads_per_candidate=reads,
+        looped_host_reads_per_candidate=FUSED_PCG_LOOPED_READS,
         launches=json.dumps(counts), card=json.dumps(smi))
+    if mgr.eval_cfg.linear_solver != "pcg" or not syncs \
+            or not reads < FUSED_PCG_LOOPED_READS:
+        raise AssertionError(f"fused_pcg: {mgr.eval_cfg.linear_solver} "
+                             f"eval, {reads} host reads a candidate")
     return total
 
 
@@ -2442,6 +2847,72 @@ def fold_run(method: int, mode: str, candidates: int) -> tuple:
             torch.cuda.max_memory_allocated() - held)
 
 
+def fold_lanes_f64(linear: str, method: int, candidates: int,
+                   smi: str) -> None:
+    """[manager_fold] (a) on one eval: the last folded batch of each width
+    of a float64 fused run of ``INTEL 50 METHOD --seed 42`` on the
+    ``linear`` eval cut to ``candidates`` closures, each lane held to its
+    solve alone, and the launches of a batched iteration to one lane's
+    (on PCG with every lane's CG run to ``eval_pcg_max_iters``, rtol 0,
+    so that each lane's count is the batch's)."""
+    from slam_tpu_torch.methods import batched
+
+    flags = ("--dtype", "float64", "--eval-linear", linear)
+    mgr, seen = fold_inputs(method, flags, candidates)
+    ss = mgr.ss
+    if ss.cfg.linear_solver != linear or sorted(seen) != sorted(ss.stacked):
+        raise AssertionError(
+            f"manager_fold m{method} {linear}: the widths {sorted(seen)}, "
+            f"the plans {sorted(ss.stacked)}")
+    free = ss.free_first.node
+    fixed = (ss.cfg.replace(pcg_rtol=0.0) if linear == "pcg" else ss.cfg)
+    for width, (P, A, iters) in sorted(seen.items()):
+        plan, free_b = ss.batch_plan(width), free.expand(width, -1)
+
+        def fold(n, cfg=ss.cfg, P=P, A=A, plan=plan, free_b=free_b):
+            return batched.batched_masked_solve(P, A, free_b, ss.edges, cfg,
+                                                n, plan)
+
+        def one(n, k=0, cfg=ss.cfg, P=P, A=A):
+            return batched.masked_solve(P[k], A[k], free, ss.edges, cfg, n,
+                                        ss.plan)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        fp, fc = fold(iters)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held
+        solo = [one(iters, k) for k in range(width)]
+        cost_rel = max(abs(fc[k].item() - c.item()) / abs(c.item())
+                       for k, (_, c) in enumerate(solo))
+        pose_err = max((fp[k] - p).abs().max().item()
+                       for k, (p, _) in enumerate(solo))
+        per_fold = iteration_launches(lambda n: fold(n, fixed))
+        per_lane = iteration_launches(lambda n: one(n, 0, fixed))
+        log("manager_fold", part="a", method=method, eval=linear,
+            dtype="float64", lanes=width, lm_iterations=iters,
+            candidates=candidates, cost_rel_diff=cost_rel,
+            pose_max_abs_diff_m=pose_err,
+            gates=json.dumps([FOLD_F64_RTOL, FOLD_F64_POSE_ATOL]),
+            peak_allocated_bytes=peak,
+            launches_per_batched_iteration=json.dumps(per_fold),
+            launches_per_lane_iteration=json.dumps(per_lane),
+            card=json.dumps(smi))
+        if not (cost_rel <= FOLD_F64_RTOL
+                and pose_err <= FOLD_F64_POSE_ATOL):
+            raise AssertionError(
+                f"manager_fold m{method} {linear} x{width}: lanes "
+                f"{cost_rel} (cost) and {pose_err} m from their solves "
+                "alone")
+        if per_fold != per_lane:
+            raise AssertionError(
+                f"manager_fold m{method} {linear} x{width}: launches "
+                f"{per_fold} a batched iteration, {per_lane} a lane's")
+    del mgr, ss, seen
+    torch.cuda.empty_cache()
+
+
 def phase_manager_fold(smi: str, timings: list) -> dict:
     """Phase 10d: the managers' candidate evaluations folded into one
     batched short solve.  (a) float64, INTEL+50 seed 42, on the Schur and
@@ -2451,64 +2922,9 @@ def phase_manager_fold(smi: str, timings: list) -> dict:
     to one lane's; (b) float32, the fused engines folded against looped,
     in turns; their device times are appended to ``timings``.  Returns
     the launch counts of (b)'s folded runs."""
-    from slam_tpu_torch.methods import batched
-
     for linear in ("schur", "dense"):
-        flags = ("--dtype", "float64", "--eval-linear", linear)
         for method in (3, 4):
-            mgr, seen = fold_inputs(method, flags, FOLD_CANDIDATES)
-            ss = mgr.ss
-            if ss.cfg.linear_solver != linear or sorted(seen) != sorted(
-                    ss.stacked):
-                raise AssertionError(
-                    f"manager_fold m{method} {linear}: the widths "
-                    f"{sorted(seen)}, the plans {sorted(ss.stacked)}")
-            free = ss.free_first.node
-            for width, (P, A, iters) in sorted(seen.items()):
-                plan, free_b = ss.batch_plan(width), free.expand(width, -1)
-
-                def fold(n, P=P, A=A, plan=plan, free_b=free_b):
-                    return batched.batched_masked_solve(
-                        P, A, free_b, ss.edges, ss.cfg, n, plan)
-
-                def one(n, k=0, P=P, A=A):
-                    return batched.masked_solve(P[k], A[k], free, ss.edges,
-                                                ss.cfg, n, ss.plan)
-
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                held = torch.cuda.memory_allocated()
-                fp, fc = fold(iters)
-                torch.cuda.synchronize()
-                peak = torch.cuda.max_memory_allocated() - held
-                solo = [one(iters, k) for k in range(width)]
-                cost_rel = max(abs(fc[k].item() - c.item()) / abs(c.item())
-                               for k, (_, c) in enumerate(solo))
-                pose_err = max((fp[k] - p).abs().max().item()
-                               for k, (p, _) in enumerate(solo))
-                per_fold, per_lane = (iteration_launches(fold),
-                                      iteration_launches(one))
-                log("manager_fold", part="a", method=method, eval=linear,
-                    dtype="float64", lanes=width, lm_iterations=iters,
-                    cost_rel_diff=cost_rel, pose_max_abs_diff_m=pose_err,
-                    gates=json.dumps([FOLD_F64_RTOL, FOLD_F64_POSE_ATOL]),
-                    peak_allocated_bytes=peak,
-                    launches_per_batched_iteration=json.dumps(per_fold),
-                    launches_per_lane_iteration=json.dumps(per_lane),
-                    card=json.dumps(smi))
-                if not (cost_rel <= FOLD_F64_RTOL
-                        and pose_err <= FOLD_F64_POSE_ATOL):
-                    raise AssertionError(
-                        f"manager_fold m{method} {linear} x{width}: lanes "
-                        f"{cost_rel} (cost) and {pose_err} m from their "
-                        "solves alone")
-                if per_fold != per_lane:
-                    raise AssertionError(
-                        f"manager_fold m{method} {linear} x{width}: launches "
-                        f"{per_fold} a batched iteration, {per_lane} a "
-                        "lane's")
-            del mgr, ss, seen
-            torch.cuda.empty_cache()
+            fold_lanes_f64(linear, method, FOLD_CANDIDATES, smi)
 
     total = {}
     for method in (3, 4):
@@ -2571,12 +2987,14 @@ def phase_woodbury(device, smi: str) -> dict:
     from slam_tpu_torch import cli
     from slam_tpu_torch.tools.problems import intel50_plain
 
-    got = {}
+    got, rounds = {}, []
 
     def run(save):
-        if cli.main(["INTEL", "50", "1", "--seed", "42", "--linear-solver",
-                     "woodbury", "--dtype", "float64", "--save-path",
-                     save]) != 0:
+        with rescue_rounds(rounds):
+            rc = cli.main(["INTEL", "50", "1", "--seed", "42",
+                           "--linear-solver", "woodbury", "--dtype",
+                           "float64", "--save-path", save])
+        if rc != 0:
             raise AssertionError("woodbury_path: cli.main failed")
         logf = os.path.join(save, "method1.log")
         got["solve"] = log_record(logf, "solve")
@@ -2586,9 +3004,12 @@ def phase_woodbury(device, smi: str) -> dict:
     ate = golden_ate("woodbury_path", poses)
     log("woodbury_path", wall_s=round(wall, 3), ate_vs_golden_m=ate,
         final_cost=float(got["solve"]["final_cost"]),
+        solve_wall_s=got["solve"]["wall_s"],
         lowrank_edges=int(got["woodbury"]["lowrank_edges"]),
-        iterations=int(got["solve"]["iterations"]),
+        iterations=int(got["solve"]["iterations"]), **round_fields(rounds),
         launches=json.dumps(counts), card=json.dumps(smi))
+    if not rounds:
+        raise AssertionError("woodbury_path: no batched consensus round")
     if not ate < ATE_GATE_M:
         raise AssertionError(f"woodbury_path: ATE {ate} m >= {ATE_GATE_M} m")
     require_launches("woodbury_path", counts)
@@ -3033,6 +3454,9 @@ def main() -> int:
         ("blocked", lambda: phase_blocked(device, smi)),
         ("seed_batch", lambda: phase_seed_batch(device, smi, timings)),
         ("rescue_batch", lambda: phase_rescue_batch(device, smi, timings)),
+        ("pcg_batch", lambda: phase_pcg_batch(device, smi, timings)),
+        ("woodbury_batch", lambda: phase_woodbury_batch(device, smi,
+                                                        timings)),
         ("method2_path", lambda: phase_method2_path(smi)),
         ("method2_dense", lambda: phase_method2_dense(device, smi)),
         ("method2_ab", lambda: phase_method2_ab(device, smi)),
@@ -3063,8 +3487,8 @@ def main() -> int:
 
     launches = {"main_path": out["main_path"],
                 "blocked_path": out["blocked"], **out["seed_batch"],
-                **out["rescue_batch"],
-                **out["method2_path"],
+                **out["rescue_batch"], **out["pcg_batch"],
+                **out["woodbury_batch"], **out["method2_path"],
                 "method2_dense": out["method2_dense"],
                 "method2_ab": out["method2_ab"], **out["pcg"],
                 "report_stages": out["report_stages"],

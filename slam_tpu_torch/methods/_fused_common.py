@@ -123,8 +123,8 @@ def setup_eval_solver(graph, cfg, solver: SolverConfig, device,
                       widths: tuple = ()):
     """The fused engines' short solves (methods 3 and 4).  Returns
     ``(ss, scan_chunk)``: the :class:`ShortSolves` of ``graph`` (its
-    edge set, gauge, the one plan every eval shares and, on the Schur and
-    dense evals, the stacked plan of each batch width in ``widths``) and
+    edge set, gauge, the one plan every eval shares and the stacked plan
+    of each batch width in ``widths``) and
     the chunk.  The stacked plans read the host, so every width a chunk
     folds is built here, before the first chunk.
 

@@ -12,10 +12,9 @@ The JAX package ``vmap``s a batch of candidates into one device program;
 here the candidates are folded into one ``lm_fixed_iters`` call over B
 copies of the problem (``solver/batch.py``: :func:`batch.candidate_plan`,
 :func:`batch.lm_fixed_iters_candidates`), each with its own damping,
-acceptance and cost, on the Schur and the dense eval.  Only the PCG eval
-still loops over the candidates, one ``lm_fixed_iters`` call each, until
-the batched PCG (ROADMAP A19a; ``batch.NOT_BATCHED``).  A batch's costs
-stay on the device until the caller reads them all at once.  Every
+acceptance and cost (on PCG its own CG scalars and stopping test), on
+the Schur, dense and PCG evals.  A batch's costs stay on the device until
+the caller reads them all at once.  Every
 function takes the linear plan, which the caller builds once per graph
 (:func:`eval_plan`): the single problem's, from which a batch of B
 builds its stacked plan, or that stacked plan (a
@@ -38,14 +37,15 @@ Tensor = torch.Tensor
 def eval_plan(cfg: SolverConfig, edges: EdgeSet, graph=None,
               schur_blocks: int = 16):
     """The linear plan of the short solves: the dense assembly plan for
-    ``linear_solver="dense"``, nothing for PCG, and for ``"schur"`` one
+    ``linear_solver="dense"``, one problem's ``linear.PCGPlan`` for PCG,
+    and for ``"schur"`` one
     partition of ``graph`` (the canonical graph of ``edges``) that every
     masked solve shares: masked-out edges contribute zero blocks, and a
     node no active edge touches is pinned by the assembly."""
     if cfg.linear_solver == "dense":
         return linear.dense_plan(edges)
     if cfg.linear_solver == "pcg":
-        return None
+        return linear.PCGPlan()
     if cfg.linear_solver == "schur" and graph is not None:
         return schur_plan(graph, cfg, schur_blocks, edges.ij.device)
     raise ValueError("the short solves run on the dense solver or PCG, or "
@@ -77,12 +77,6 @@ def _check_plan(cfg: SolverConfig, plan) -> None:
     if cfg.linear_solver == "dense" and plan is None:
         raise ValueError("the dense short solves need the plan of "
                          "eval_plan(cfg, edges)")
-
-
-def folded(cfg: SolverConfig) -> bool:
-    """Whether a batch of short solves on ``cfg`` is one folded call (the
-    Schur and dense evals) or one call per candidate (PCG, A19a)."""
-    return cfg.linear_solver != "pcg"
 
 
 def stacked_plan(edges: EdgeSet, cfg: SolverConfig, plan,
@@ -122,12 +116,8 @@ def batched_eval_cost(
     """(B,) final costs of a ``num_iters``-iteration LM solve per
     candidate, on the device (the reference's ``summary.final_cost``:
     after the short solve, Huber-robustified, 0.5-scaled), all B in one
-    folded call (PCG: one call each, A19a)."""
+    folded call."""
     _check_plan(cfg, plan)
-    if not folded(cfg):
-        return torch.stack([
-            _solve(poses, active, free, edges, cfg, num_iters, plan).cost
-            for poses, active in zip(poses_b, actives_b)])
     poses_b = _stack(poses_b)
     B = poses_b.shape[0]
     return batch.lm_fixed_iters_candidates(
@@ -166,14 +156,9 @@ def batched_masked_solve(
     num_iters: int,
     plan,
 ) -> tuple[Tensor, Tensor]:
-    """:func:`masked_solve` of each of B candidates, in one folded call
-    (PCG: one call each, A19a): ((B, N, 3) poses, (B,) costs)."""
+    """:func:`masked_solve` of each of B candidates, in one folded call:
+    ((B, N, 3) poses, (B,) costs)."""
     _check_plan(cfg, plan)
-    if not folded(cfg):
-        out = [_solve(p, a, FreeMask(node=f), edges, cfg, num_iters, plan)
-               for p, a, f in zip(poses_b, actives_b, free_nodes_b)]
-        return (torch.stack([r.poses for r in out]),
-                torch.stack([r.cost for r in out]))
     poses_b = _stack(poses_b)
     res = batch.lm_fixed_iters_candidates(
         poses_b, actives_b, free_nodes_b, cfg, num_iters,

@@ -11,9 +11,8 @@ NumPy; the solves run on the chosen device.
 Each consensus round of the rescue is one batched ``lm_solve`` over the
 chains (``batch.lm_solve_batch`` on a ``batch.chain_batch`` built once per
 run) and one ``loop_psi`` of every chain's poses, as the JAX package's
-``_chain_solve_batch`` runs ``jax.vmap(lm_solve)``; on the PCG and
-Woodbury solvers, which have no batch yet (ROADMAP A19a, A19b), the
-chains are solved one after another.
+``_chain_solve_batch`` runs ``jax.vmap(lm_solve)``, on whichever linear
+solver the run uses (Schur, dense, PCG or Woodbury).
 
 Dropped TPU workarounds: incidence selection and chain compression, the
 program-sharing ``rescue_ready`` lanes (the plain solve runs first, then
@@ -182,7 +181,6 @@ def run_global_solve(
     prob = setup_problem(graph, cfg, logger, device)
     scfg, edges = prob.scfg, prob.edges
     model = model_for_dim(graph.dim)
-    dtype, dev = prob.poses0.dtype, prob.poses0.device
 
     def solve(es, c):
         return lm_solve(prob.poses0, prob.switches0, es, prob.free, c,
@@ -221,30 +219,16 @@ def run_global_solve(
                                     cfg.seed, cut)
             fixed = np.zeros(C, dtype=bool)
             chain_res: list = [None] * C
-            # PCG and Woodbury have no batched solver yet (ROADMAP A19a,
-            # A19b): their chains are solved one after another.
-            looped = scfg.linear_solver in ("pcg", "woodbury")
-            if not looped:
-                chains = batch.chain_batch(prob.poses0, prob.switches0, edges,
-                                           prob.free, scfg, prob.partition, C)
+            chains = batch.chain_batch(prob.poses0, prob.switches0, edges,
+                                       prob.free, scfg, prob.partition, C)
             for _ in range(scfg.dcs_consensus_rounds):
                 rounds_run += 1
-                masks = cur * base_active
-                if looped:
-                    psi = np.zeros_like(cur)
-                    for c in np.flatnonzero(~fixed):
-                        chain_res[c] = solve(edges._replace(
-                            active=torch.as_tensor(masks[c], dtype=dtype,
-                                                   device=dev)), scfg)
-                        psi[c] = _psi_probe(chain_res[c].poses, edges, scfg,
-                                            model)
-                else:
-                    res_b = batch.lm_solve_batch(
-                        chains.poses0, chains.switches0,
-                        chains.masked(masks), chains.free, scfg,
-                        chains.partition)
-                    psi = _psi_probe(res_b.poses, chains.edges, scfg, model)
-                    chain_res = [batch.lane(res_b, c) for c in range(C)]
+                res_b = batch.lm_solve_batch(
+                    chains.poses0, chains.switches0,
+                    chains.masked(cur * base_active), chains.free, scfg,
+                    chains.partition)
+                psi = _psi_probe(res_b.poses, chains.edges, scfg, model)
+                chain_res = [batch.lane(res_b, c) for c in range(C)]
                 for c in np.flatnonzero(~fixed):
                     new_mask = np.where(
                         live_loop > 0,

@@ -148,11 +148,8 @@ class ShortSolves:
                                device=self.dev)
 
     def batch_plan(self, width: int):
-        """The plan of a batch of ``width`` candidates: on the Schur and
-        dense evals the stacked plan, built on first use (it reads the
-        host) and kept; on PCG the single problem's (none)."""
-        if not batched.folded(self.cfg):
-            return self.plan
+        """The stacked plan of a batch of ``width`` candidates, built on
+        first use (it reads the host) and kept."""
         if width not in self.stacked:
             self.stacked[width] = batched.stacked_plan(
                 self.edges, self.cfg, self.plan, width)
@@ -170,7 +167,7 @@ class ShortSolves:
         ((B, N, 3) poses, (B, E) device masks), anchored at node 0, left
         on the device: one folded call (the fused engines' evaluations)."""
         B = poses_b.shape[0]
-        self._count(B, num_iters, 1 if batched.folded(self.cfg) else B)
+        self._count(B, num_iters, 1)
         return batched.batched_eval_cost(
             poses_b, actives_b, self.edges, self.free_first, self.cfg,
             num_iters, self.batch_plan(B))

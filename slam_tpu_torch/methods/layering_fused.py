@@ -11,8 +11,8 @@ whole decision loop runs on the device, and the host only enqueues:
   L_ij for the top-3 UCT layers; ``layer_manager.cpp:352-385``) are 10
   short solves folded into one ``lm_fixed_iters`` call over 10 lanes
   (``ShortSolves.device_costs``; its stacked plan built before the first
-  chunk), their costs one (10,) device tensor; only the PCG eval runs
-  them one call each (ROADMAP A19a).  The windowed commit is one solve.
+  chunk), their costs one (10,) device tensor, on every eval (Schur,
+  dense or PCG).  The windowed commit is one solve.
 * UCT top-k, the conflict deltas, split or assign, the windowed commit
   (``layer_manager.cpp:137-179``), the EMA residual and the reward
   (``layer_manager.cpp:450-461``) are tensors selected with

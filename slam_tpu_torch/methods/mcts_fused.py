@@ -16,11 +16,12 @@ or on the full layer (``:500-565`` / ``:457-498``), selected by
 ``did_split``, and the 2-solve reward (``:293-339``).  The split check's
 3 solves and the reward's 2 are each one ``lm_fixed_iters`` call folded
 over their lanes (``ShortSolves.device_costs``; the stacked plans of
-widths 3 and 2 built before the first chunk), the commit one solve; only
-the PCG eval runs them one call each (ROADMAP A19a).  UCT selection with
+widths 3 and 2 built before the first chunk, on every eval), the commit
+one solve.  UCT selection with
 unvisited-first (``:132-171``), the Mahalanobis gate (``:388-455``) and
 the parent-chain backprop (``:624-641``, exactly L steps of pointer
-chasing) are tensors too; the host reads nothing inside a chunk.  The
+chasing) are tensors too; the host reads nothing inside a chunk but
+the PCG eval's CG stopping flag.  The
 host engine (``mcts.py``) stays the readable reference, and the replay
 writes its log lines.
 """

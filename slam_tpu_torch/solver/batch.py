@@ -30,7 +30,17 @@ Here stacking is concatenation:
   not the partition of the disjoint union, whose one separator of
   ``B*D*ns`` would cost B^2 times the factor work;
 - the dense plan (``linear.dense_plan(seeds=B)``) puts each problem's
-  pose-only system in its own matrix of a ``(B, D*N, D*N)`` stack.
+  pose-only system in its own matrix of a ``(B, D*N, D*N)`` stack;
+- PCG's plan (``linear.PCGPlan(seeds=B)``) gives each problem its own CG
+  scalars and stopping test; the cyclic-reduction preconditioner reduces
+  each problem's chain on a lane axis (``solver/tridiag.py``);
+- the Woodbury operators (``woodbury.build_woodbury_ops(seeds=B)``) hold
+  each problem's low-rank edges, padded to the problems' largest count
+  with columns that add nothing (``scripts/bench_woodbury.py``'s
+  ``pad_to``); each problem's K x K core is factored on its own.
+
+:func:`batch_plan` builds a plan of the B problems of an edge set for
+each solver but Schur, whose partition the seeds' slot maps make.
 
 :func:`lm_fixed_iters_batch` and :func:`lm_solve_batch` run every problem's
 LM with its own damping, acceptance and cost, as the ``vmap`` does
@@ -39,10 +49,12 @@ LM with its own damping, acceptance and cost, as the ``vmap`` does
 an iteration serves all B problems: one linearisation over the B*E edges,
 the gathers and scatters of one problem's iteration, and on the blocked
 path one ``micro_chol_inv`` launch per diagonal panel for the B*P
-interiors (``micro_chol_inv_folded``).  A single problem's arithmetic is
-unchanged.  The batch takes the Schur and the dense solver with ``robust``
-none, dcs or sc_varpro; PCG, Woodbury and joint SC raise, naming the
-``ROADMAP.md`` item that ports them.
+interiors (``micro_chol_inv_folded``); on PCG one gather and one
+grouped scatter per CG matvec for all B problems, the loop running as
+long as its slowest problem.  A single problem's arithmetic is
+unchanged.  The batch takes the Schur, dense, PCG and Woodbury solvers
+with ``robust`` none, dcs or sc_varpro; joint SC raises, naming the
+``ROADMAP.md`` item that ports it.
 """
 
 from __future__ import annotations
@@ -55,7 +67,7 @@ import torch
 from slam_tpu_torch.config import SolverConfig
 from slam_tpu_torch.graph import PoseGraph
 from slam_tpu_torch.runtime import require_type
-from slam_tpu_torch.solver import linear, schur
+from slam_tpu_torch.solver import linear, schur, woodbury
 from slam_tpu_torch.solver.lm import LMResult, lm_fixed_iters, lm_solve
 from slam_tpu_torch.solver.problem import EdgeSet, FreeMask, \
     edge_set_from_arrays, padded_edge_arrays
@@ -64,15 +76,17 @@ Tensor = torch.Tensor
 
 #: What the batch does not take, and the ROADMAP item that ports it.
 NOT_BATCHED = {
-    "pcg": "A19a (the batched PCG, scripts/bench_pcg.py)",
-    "woodbury": "A19b (the batched Woodbury solver, "
-                "scripts/bench_woodbury.py)",
     "sc": "A19d (joint switchable constraints in the batch)",
 }
+#: The plan type each linear solver's batch takes.
+PLANS = {"schur": schur.SchurPartition, "dense": linear.DenseBatchPlan,
+         "pcg": linear.PCGPlan, "woodbury": woodbury.WoodburyOps}
 
 
 class SeedBatch(NamedTuple):
-    """B seeds' problems stacked for :func:`lm_fixed_iters_batch`."""
+    """B seeds' problems stacked for :func:`lm_fixed_iters_batch`: the
+    Schur partition here, the other solvers' plans by
+    :func:`batch_plan`."""
 
     poses0: Tensor        # (B, N, D) each seed's initial poses
     switches0: Tensor     # (B, E)
@@ -160,6 +174,24 @@ def seed_batch(graphs: Sequence[PoseGraph], num_blocks: int,
         pad_shapes=pad)
 
 
+def batch_plan(edges: EdgeSet, linear_solver: str, seeds: int):
+    """The plan of ``seeds`` problems of one size in ``edges`` (a seed
+    batch's, or copies of one problem) for a solver other than Schur: the
+    dense batch plan, PCG's, or the Woodbury operators padded to the
+    problems' largest low-rank count (``scripts/bench_woodbury.py``'s
+    recipe; copies of one problem need no padding)."""
+    if linear_solver == "dense":
+        return linear.dense_plan(edges, seeds=seeds)
+    if linear_solver == "pcg":
+        return linear.PCGPlan(seeds)
+    if linear_solver == "woodbury":
+        return woodbury.build_woodbury_ops(
+            edges.ij.cpu().numpy(), edges.num_nodes,
+            device=edges.ij.device, seeds=seeds)
+    raise ValueError(f"no batch plan of {linear_solver!r} here: the Schur "
+                     "partition is built from the problems' slot maps")
+
+
 def stack_edges(edges: EdgeSet, copies: int) -> EdgeSet:
     """``copies`` copies of ``edges`` as one edge set of ``copies*E`` edges
     over ``copies*N`` nodes, copy k's endpoints offset by ``k*N``."""
@@ -186,7 +218,7 @@ class ChainBatch(NamedTuple):
     switches0: Tensor     # (C, E)
     edges: EdgeSet        # C*E edges over C*N nodes, the problem's masks
     free: FreeMask        # (C*N,)
-    partition: object     # SchurPartition or linear.DenseBatchPlan, seeds=C
+    partition: object     # a plan of PLANS, seeds=C
 
     @property
     def chains(self) -> int:
@@ -203,8 +235,8 @@ def chain_batch(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
                 free: FreeMask, cfg: SolverConfig, partition,
                 chains: int) -> ChainBatch:
     """``chains`` copies of one problem and its plan (the problem's Schur
-    partition stacked, or the dense batch plan), built once for every
-    round of a rescue."""
+    partition stacked, or :func:`batch_plan`), built once for every round
+    of a rescue."""
     C = chains
     plan = candidate_plan(edges, cfg, partition, C)
     return ChainBatch(
@@ -221,7 +253,7 @@ class CandidatePlan(NamedTuple):
     once per width (its edge set and plan read the host) and kept."""
 
     edges: EdgeSet        # B*E edges over B*N nodes
-    partition: object     # SchurPartition or linear.DenseBatchPlan, seeds=B
+    partition: object     # a plan of PLANS, seeds=B
 
     @property
     def lanes(self) -> int:
@@ -231,8 +263,8 @@ class CandidatePlan(NamedTuple):
 def candidate_plan(edges: EdgeSet, cfg: SolverConfig, partition,
                    lanes: int) -> CandidatePlan:
     """``lanes`` copies of ``edges`` and of the problem's plan: its Schur
-    partition stacked (``partition`` is the single problem's), or the
-    dense batch plan of the copies."""
+    partition stacked (``partition`` is the single problem's), or
+    :func:`batch_plan` of the copies."""
     _check_solver(cfg)
     es = stack_edges(edges, lanes)
     if cfg.linear_solver == "schur":
@@ -240,7 +272,7 @@ def candidate_plan(edges: EdgeSet, cfg: SolverConfig, partition,
             stack_slots([partition.slots] * lanes),
             dtype=edges.meas.dtype, device=edges.meas.device, seeds=lanes)
     else:
-        plan = linear.dense_plan(es, seeds=lanes)
+        plan = batch_plan(es, cfg.linear_solver, lanes)
     return CandidatePlan(edges=es, partition=plan)
 
 
@@ -249,7 +281,8 @@ def lm_fixed_iters_candidates(poses_b: Tensor, actives_b: Tensor,
                               num_iters: int,
                               plan: CandidatePlan) -> LMResult:
     """``num_iters`` LM iterations of each of B candidates of one problem,
-    no host read inside, as ``jax.vmap(lm_fixed_iters)`` runs them:
+    no host read inside (on PCG but its stopping flag), as
+    ``jax.vmap(lm_fixed_iters)`` runs them:
     ``poses_b`` (B, N, D) their start poses, ``actives_b`` (B, E) their
     edge masks, ``free_b`` (B, N) their free masks (1 = free); every
     switch 1.  Shapes of the result as :func:`lm_fixed_iters_batch`."""
@@ -281,7 +314,7 @@ def _check_solver(cfg: SolverConfig) -> None:
             raise NotImplementedError(
                 f"the seed batch does not take {what!r} yet: ROADMAP "
                 f"{NOT_BATCHED[what]}")
-    if cfg.linear_solver not in ("schur", "dense"):
+    if cfg.linear_solver not in PLANS:
         raise ValueError(f"unknown linear solver {cfg.linear_solver!r}")
 
 
@@ -289,13 +322,12 @@ def _flat(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
           cfg: SolverConfig, partition) -> tuple:
     """Check a batch's inputs; returns ``(B, N, D, E)``."""
     _check_solver(cfg)
-    plan = {"schur": schur.SchurPartition,
-            "dense": linear.DenseBatchPlan}[cfg.linear_solver]
-    if not isinstance(partition, plan) or partition.seeds is None:
+    if not isinstance(partition, PLANS[cfg.linear_solver]) \
+            or partition.seeds is None:
         raise ValueError("the seed batch needs its stacked partition "
                          "(seed_batch(...).partition, "
                          "chain_batch(...).partition or "
-                         "linear.dense_plan(edges, seeds=B))")
+                         "batch_plan(edges, solver, seeds=B))")
     B, N, dim = poses0.shape
     E = switches0.shape[-1]
     if partition.seeds != B or edges.num_nodes != B * N \
@@ -316,11 +348,12 @@ def lm_fixed_iters_batch(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
                          free: FreeMask, cfg: SolverConfig, num_iters: int,
                          partition) -> LMResult:
     """Exactly ``num_iters`` LM iterations of each of B seeds, no host
-    read inside: ``lm_fixed_iters`` on the batch's flat problem, which
+    read inside (on PCG but its stopping flag): ``lm_fixed_iters`` on the
+    batch's flat problem, which
     runs every seed as ``jax.vmap(lm_fixed_iters)`` does.  ``poses0`` is
     ``(B, N, D)``, ``switches0`` ``(B, E)``; the result's poses are
     ``(B, N, D)``, switches ``(B, E)``, and cost, initial cost, accepted
-    steps, lambda and nu ``(B,)``."""
+    steps, lambda, nu and the inner (CG) iterations ``(B,)``."""
     B, N, dim, E = _flat(poses0, switches0, edges, cfg, partition)
     res = lm_fixed_iters(poses0.reshape(B * N, dim),
                          switches0.reshape(B * E), edges, free, cfg,

@@ -23,7 +23,10 @@ method 2's joint system (``robust="sc"``) and solve to 0 otherwise.
 - ``pcg_solve``: preconditioned conjugate gradients on the joint system;
   each matvec is one ``gather_rows`` and one grouped ``scatter_add_rows``
   launch, and the stopping test is read on the host only every
-  :data:`CHECK_EVERY` iterations.
+  :data:`CHECK_EVERY` iterations.  On B problems (:class:`PCGPlan` with
+  ``seeds=B``) each lane has its own CG scalars and stopping test, as
+  ``jax.vmap`` of the JAX ``pcg_solve`` runs them, and each launch serves
+  all lanes.
 """
 
 from __future__ import annotations
@@ -60,11 +63,26 @@ def damped_blocks(system: BlockSystem, lam: Tensor) -> Tensor:
         lam * torch.clamp(d, _DIAG_MIN, _DIAG_MAX))
 
 
-def damped_diag(system: BlockSystem, lam: Tensor) -> tuple[Tensor, Tensor]:
+def damped_diag(system: BlockSystem, lam: Tensor,
+                seeds: int | None = None) -> tuple[Tensor, Tensor]:
     """LM-damped diagonal blocks (:func:`damped_blocks`) and the damped
-    switch diagonal."""
-    Hss = system.Hss + lam * torch.clamp(system.Hss, _DIAG_MIN, _DIAG_MAX)
+    switch diagonal; for B problems (``seeds``, ``lam`` per node) each
+    problem's switches take its own ``lam``."""
+    lam_s = lam if seeds is None else lane_rows(
+        lam.reshape(seeds, -1)[:, 0], system.Hss, seeds)
+    Hss = system.Hss + lam_s * torch.clamp(system.Hss, _DIAG_MIN, _DIAG_MAX)
     return damped_blocks(system, lam), Hss
+
+
+def lane_rows(v: Tensor, like: Tensor, seeds: int | None) -> Tensor:
+    """``v`` as it broadcasts over ``like``'s rows: unchanged for one
+    problem; for B problems each problem's entry of ``(B,)`` repeated over
+    its block of ``like.shape[0] / B`` rows."""
+    if seeds is None:
+        return v
+    n = like.shape[0]
+    return v[:, None].expand(seeds, n // seeds).reshape(
+        (n,) + (1,) * (like.dim() - 1))
 
 
 def nan_unless_factored(x: Tensor, info: Tensor,
@@ -267,8 +285,12 @@ def eliminate_switches(system: BlockSystem, edges: EdgeSet, lam: Tensor):
 # ---------------------------------------------------------------------------
 
 def _bmv(m: Tensor, v: Tensor) -> Tensor:
-    """``m[i] @ v[i]`` for ``m (N, D, D)``, ``v (N, D)``."""
-    return (m @ v[:, :, None])[:, :, 0]
+    """``m[i] @ v[i]`` for ``m (..., D, D)``, ``v (..., D)``, as an
+    elementwise product and a sum over its last axis: each entry is then
+    the same whatever the batch around it, so that a problem's lane of a
+    batched solve is its solve alone to the bit (a batched matmul is not:
+    on the card another batch count takes another cuBLAS kernel)."""
+    return (m * v[..., None, :]).sum(-1)
 
 
 def matvec(system: BlockSystem, edges: EdgeSet, Hd: Tensor, Hss: Tensor,
@@ -312,39 +334,68 @@ def _inv_blocks(m: Tensor) -> Tensor:
     return adj * inv_det[..., None, None]
 
 
-def _dot(x: Update, y: Update) -> Tensor:
-    return torch.sum(x.poses * y.poses) + torch.sum(x.switches * y.switches)
+class PCGPlan(NamedTuple):
+    """PCG's plan: nothing to build, and ``seeds=B`` for B problems of one
+    size in turn along the unknowns (``solver/batch.py``)."""
+
+    seeds: int | None = None
 
 
-def _where(flag: Tensor, new: Update, old: Update) -> Update:
-    return Update(torch.where(flag, new.poses, old.poses),
-                  torch.where(flag, new.switches, old.switches))
+def _dot(x: Update, y: Update, seeds: int | None = None) -> Tensor:
+    """``x . y``, or each problem's of B (``(B,)``): each problem's sums
+    are the full reductions of its own rows, as alone, so that its CG
+    scalars and stopping test are its solve's alone to the bit (a row
+    reduction of the ``(B, n)`` view sums in another order on the card,
+    and CG carries a last-bit difference into its count).  So a batch's
+    dot launches 2B + 4 kernels where one problem's launches 5."""
+    pp, ss = x.poses * y.poses, x.switches * y.switches
+    if seeds is None:
+        return torch.sum(pp) + torch.sum(ss)
+    n, e = pp.shape[0] // seeds, ss.shape[0] // seeds
+    sums = torch.stack([torch.sum(pp[k * n:(k + 1) * n])
+                        for k in range(seeds)]
+                       + [torch.sum(ss[k * e:(k + 1) * e])
+                          for k in range(seeds)])
+    return sums[:seeds] + sums[seeds:]
 
 
 def pcg_solve(system: BlockSystem, edges: EdgeSet, lam: Tensor,
               max_iters: int = 250, rtol: float = 1e-8,
-              preconditioner: str = "tridiag") -> tuple[Update, int]:
+              preconditioner: str = "tridiag",
+              seeds: int | None = None) -> tuple[Update, Tensor]:
     """Preconditioned CG on the damped joint normal equations.
 
     ``preconditioner``: "tridiag" (the block-tridiagonal odometry chain
     solved by cyclic reduction, ``solver/tridiag.py``) or "jacobi" (the
-    inverted node-diagonal blocks).  Returns ``(dx, iterations)``.  The
-    JAX package's device ``while_loop`` becomes a loop whose stopping test
-    stays on the device: once it fails, a flag freezes the iterates, so
-    they and the count are the ``while_loop``'s, and the host reads the
-    flag every :data:`CHECK_EVERY` iterations.
+    inverted node-diagonal blocks).  Returns ``(dx, iterations)``, the
+    count a 0-d device tensor.  The JAX package's device ``while_loop``
+    becomes a loop whose stopping test stays on the device: once it fails,
+    a flag freezes the iterates, so they and the count are the
+    ``while_loop``'s, and the host reads the flag every
+    :data:`CHECK_EVERY` iterations (its only read).
+
+    ``seeds=B``: the system is B problems of one size, ``lam`` per node;
+    each has its own ``rz``, ``alpha``, ``beta``, tolerance and flag, as a
+    vmapped ``while_loop`` runs them, the count is ``(B,)``, and the loop
+    runs until no problem's flag holds.
     """
-    Hd, Hss = damped_diag(system, lam)
+    Hd, Hss = damped_diag(system, lam, seeds)
     Msinv = 1.0 / Hss
 
     if preconditioner == "tridiag":
         from slam_tpu_torch.solver import tridiag
 
         factors = tridiag.build_cr_factors(
-            *tridiag.extract_tridiag(system, edges, Hd))
+            *tridiag.extract_tridiag(system, edges, Hd, seeds))
+
+        def chain(r: Tensor) -> Tensor:
+            if seeds is None:
+                return tridiag.cr_solve(factors, r)
+            return tridiag.cr_solve(
+                factors, r.reshape(seeds, -1, r.shape[-1])).reshape(r.shape)
 
         def precond(r: Update) -> Update:
-            return Update(poses=tridiag.cr_solve(factors, r.poses),
+            return Update(poses=chain(r.poses),
                           switches=Msinv * r.switches)
     elif preconditioner == "jacobi":
         Minv = _inv_blocks(Hd)
@@ -355,30 +406,44 @@ def pcg_solve(system: BlockSystem, edges: EdgeSet, lam: Tensor,
     else:
         raise ValueError(f"unknown preconditioner {preconditioner!r}")
 
+    def dot(a: Update, b: Update) -> Tensor:
+        return _dot(a, b, seeds)
+
+    def step(v: Tensor, x: Update, y: Update) -> Update:
+        """``x + v y``, each problem's ``v`` on its rows."""
+        return Update(x.poses + lane_rows(v, y.poses, seeds) * y.poses,
+                      x.switches + lane_rows(v, y.switches, seeds)
+                      * y.switches)
+
+    def where(flag: Tensor, new: Update, old: Update) -> Update:
+        return Update(
+            torch.where(lane_rows(flag, new.poses, seeds), new.poses,
+                        old.poses),
+            torch.where(lane_rows(flag, new.switches, seeds), new.switches,
+                        old.switches))
+
     r = Update(poses=-system.g, switches=-system.gs)  # b - A*0
     x = Update(torch.zeros_like(r.poses), torch.zeros_like(r.switches))
     p = precond(r)
-    rz = _dot(r, p)
-    tol2 = (rtol * (torch.sqrt(_dot(r, r)) + 1e-30)) ** 2
-    running = _dot(r, r) > tol2
-    iters = torch.zeros((), dtype=torch.int64, device=rz.device)
+    rz = dot(r, p)
+    tol2 = (rtol * (torch.sqrt(dot(r, r)) + 1e-30)) ** 2
+    running = dot(r, r) > tol2
+    iters = torch.zeros(running.shape, dtype=torch.int64,
+                        device=rz.device)
     for k in range(max_iters):
-        if k % CHECK_EVERY == 0 and not bool(running):
+        if k % CHECK_EVERY == 0 and not bool(running.any()):
             break
         Ap = matvec(system, edges, Hd, Hss, p)
-        alpha = rz / (_dot(p, Ap) + 1e-30)
-        x_new = Update(x.poses + alpha * p.poses,
-                       x.switches + alpha * p.switches)
-        r_new = Update(r.poses - alpha * Ap.poses,
-                       r.switches - alpha * Ap.switches)
+        alpha = rz / (dot(p, Ap) + 1e-30)
+        x_new = step(alpha, x, p)
+        r_new = step(-alpha, r, Ap)
         z = precond(r_new)
-        rz_new = _dot(r_new, z)
+        rz_new = dot(r_new, z)
         beta = rz_new / (rz + 1e-30)
-        p_new = Update(z.poses + beta * p.poses,
-                       z.switches + beta * p.switches)
-        x, r, p = (_where(running, x_new, x), _where(running, r_new, r),
-                   _where(running, p_new, p))
+        p_new = step(beta, z, p)
+        x, r, p = (where(running, x_new, x), where(running, r_new, r),
+                   where(running, p_new, p))
         rz = torch.where(running, rz_new, rz)
         iters = iters + running.to(torch.int64)
-        running = running & (_dot(r, r) > tol2)
-    return x, int(iters)
+        running = running & (dot(r, r) > tol2)
+    return x, iters

@@ -6,11 +6,13 @@ Python loops over device tensors: the state stays on the device, and
 Damping is Marquardt-scaled with the Nielsen update; ``lm_fixed_iters``
 also carries the opt-in stock-Ceres bookkeeping (``trust_region="ceres"``).
 
-On a seed batch's plan (``SchurPartition.seeds`` or
-``linear.DenseBatchPlan.seeds``, ``solver/batch.py``) both loops run B
+On a seed batch's plan (the ``seeds`` of a ``SchurPartition``,
+``linear.DenseBatchPlan``, ``linear.PCGPlan`` or ``WoodburyOps``,
+``solver/batch.py``) both loops run B
 problems as one flat problem of B*N nodes and B*E edges, as ``jax.vmap``
 runs the JAX loops: cost, lambda, nu and acceptance are ``(B,)``, each
-seed's repeated over its own rows, and every sum is each seed's.
+seed's repeated over its own rows, and every sum is each seed's; so are
+the inner (CG) iterations, ``lin_iters``.
 ``lm_solve`` then stops each seed at its own convergence, as a vmapped
 ``while_loop`` does: the step runs on every seed, and only the seeds still
 running take it.
@@ -41,7 +43,7 @@ class LMState(NamedTuple):
     it: int           # iterations executed
     accepted: Tensor  # accepted steps (int64 scalar)
     converged: Tensor  # bool scalar
-    lin_iters: int    # cumulative inner iterations (0 for direct solvers)
+    lin_iters: Tensor  # cumulative inner iterations (0 for direct solvers)
 
 
 class LMResult(NamedTuple):
@@ -52,7 +54,7 @@ class LMResult(NamedTuple):
     iterations: int
     accepted: Tensor
     converged: Tensor
-    lin_iters: int
+    lin_iters: Tensor
     final_lambda: Tensor | None = None
     final_nu: Tensor | None = None
 
@@ -71,7 +73,8 @@ def linear_plan(cfg: SolverConfig, edges: EdgeSet, partition=None):
     """What the configured linear solver needs besides the system: the
     Schur partition or the Woodbury operators; the dense assembly plan
     (pose-only, or the joint one for ``robust="sc"``), built when not
-    given; nothing for PCG."""
+    given; for PCG its :class:`linear.PCGPlan` (one problem's when not
+    given)."""
     if cfg.linear_solver == "dense":
         joint = cfg.robust == "sc"
         if partition is None:
@@ -85,7 +88,8 @@ def linear_plan(cfg: SolverConfig, edges: EdgeSet, partition=None):
             raise ValueError("linear_solver='schur' requires a partition")
         return partition
     if cfg.linear_solver == "pcg":
-        return None
+        return (partition if isinstance(partition, linear.PCGPlan)
+                else linear.PCGPlan())
     if cfg.linear_solver == "woodbury":
         if partition is None:
             raise ValueError("linear_solver='woodbury' requires WoodburyOps "
@@ -95,7 +99,7 @@ def linear_plan(cfg: SolverConfig, edges: EdgeSet, partition=None):
 
 
 def _solve_linear(system, edges, lam, cfg: SolverConfig,
-                  plan) -> tuple[linear.Update, int]:
+                  plan) -> tuple[linear.Update, Tensor | int]:
     """The step and its inner (CG) iterations, 0 for the direct solvers.
     Joint SC on the Schur and Woodbury solvers eliminates the switches
     first and recovers them by substitution."""
@@ -105,7 +109,8 @@ def _solve_linear(system, edges, lam, cfg: SolverConfig,
         return linear.pcg_solve(system, edges, lam,
                                 max_iters=cfg.pcg_max_iters,
                                 rtol=cfg.pcg_rtol,
-                                preconditioner=cfg.pcg_preconditioner)
+                                preconditioner=cfg.pcg_preconditioner,
+                                seeds=plan.seeds)
     from slam_tpu_torch.solver import schur, woodbury
 
     backsub = None
@@ -135,35 +140,24 @@ def _cost_kw(cfg: SolverConfig, model) -> dict:
                 sc_prior_lambda=cfg.sc_prior_lambda)
 
 
-def _rows(v: Tensor, like: Tensor, seeds: int | None) -> Tensor:
-    """``v`` as it broadcasts over ``like``'s rows: unchanged for one
-    problem; in a seed batch each seed's entry of ``(B,)`` repeated over
-    its block of ``like.shape[0] / B`` rows."""
-    if seeds is None:
-        return v
-    n = like.shape[0]
-    return v[:, None].expand(seeds, n // seeds).reshape(
-        (n,) + (1,) * (like.dim() - 1))
-
-
 def _propose(s: LMState, edges, free, cfg, model, plan, kw, gnc,
              seeds: int | None = None):
     """One linearise-solve-retract step from ``s``: returns the candidate,
     the model's predicted reduction and the solve's inner iterations
-    (each seed's reduction in a batch of ``seeds``)."""
+    (each seed's reduction and iterations in a batch of ``seeds``)."""
     kw_t = dict(kw, dcs_phi=_gnc_phi(cfg, s.it))
     system = linearize(s.poses, s.switches, edges, free, **kw_t)
     # Under GNC the objective changes each iteration; compare at the
     # current phi (system.cost is the objective at s.poses and phi_t).
     prev_cost = system.cost if gnc else s.cost
-    lam_x = _rows(s.lam, s.poses, seeds)
+    lam_x = linear.lane_rows(s.lam, s.poses, seeds)
     dx, inner = _solve_linear(system, edges, lam_x, cfg, plan)
     new_poses = model.retract(s.poses, dx.poses)
     new_switches = s.switches + dx.switches
     new_cost = cost_only(new_poses, new_switches, edges, **kw_t)
     d = torch.diagonal(system.Hdiag, dim1=-2, dim2=-1)
     damp = lam_x * torch.clamp(d, linear._DIAG_MIN, linear._DIAG_MAX)
-    ds = _rows(s.lam, s.switches, seeds) * torch.clamp(
+    ds = linear.lane_rows(s.lam, s.switches, seeds) * torch.clamp(
         system.Hss, linear._DIAG_MIN, linear._DIAG_MAX)
     model_red = 0.5 * (
         _total(dx.poses * (damp * dx.poses - system.g), seeds)
@@ -194,7 +188,8 @@ def _init_state(poses0, switches0, cost0, cfg, lam0=None, nu0=None,
         accepted=torch.zeros(shape, dtype=torch.int64, device=poses0.device),
         converged=torch.zeros(shape, dtype=torch.bool,
                               device=poses0.device),
-        lin_iters=0,
+        lin_iters=torch.zeros(shape, dtype=torch.int64,
+                              device=poses0.device),
     )
 
 
@@ -214,13 +209,14 @@ def _take(run: Tensor, new: LMState, old: LMState, seeds: int) -> LMState:
     """``new`` in the seeds where ``run`` holds, ``old`` elsewhere (a
     vmapped ``while_loop``'s select); the counters are the loop's."""
     def pick(a, b):
-        return torch.where(_rows(run, a, seeds), a, b)
+        return torch.where(linear.lane_rows(run, a, seeds), a, b)
 
     return new._replace(
         poses=pick(new.poses, old.poses),
         switches=pick(new.switches, old.switches),
         **{f: torch.where(run, getattr(new, f), getattr(old, f))
-           for f in ("cost", "lam", "nu", "accepted", "converged")})
+           for f in ("cost", "lam", "nu", "accepted", "converged",
+                     "lin_iters")})
 
 
 def lm_solve(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
@@ -260,9 +256,9 @@ def lm_solve(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
         if gnc:  # no convergence while phi is still annealing
             converged = converged & (s.it >= cfg.gnc_anneal_iters)
         step = LMState(
-            poses=torch.where(_rows(accept, new_poses, seeds), new_poses,
-                              s.poses),
-            switches=torch.where(_rows(accept, new_switches, seeds),
+            poses=torch.where(linear.lane_rows(accept, new_poses, seeds),
+                              new_poses, s.poses),
+            switches=torch.where(linear.lane_rows(accept, new_switches, seeds),
                                  new_switches, s.switches),
             cost=torch.where(accept, new_cost, prev_cost),
             lam=torch.where(accept, lam_acc, lam_rej),
@@ -290,7 +286,8 @@ def lm_fixed_iters(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
                    free: FreeMask, cfg: SolverConfig, num_iters: int,
                    model=None, partition=None, lam0=None, it0=None,
                    nu0=None) -> LMResult:
-    """Exactly ``num_iters`` LM iterations, no host sync inside.
+    """Exactly ``num_iters`` LM iterations, no host sync inside (on PCG
+    but its CG stopping flag, ``linear.CHECK_EVERY``).
     ``lam0``/``nu0``/``it0`` continue from a previous result;
     ``model=None`` takes the model of the poses' width.  On a seed batch's
     partition the flat poses and switches are B seeds' (see the module
@@ -321,9 +318,9 @@ def lm_fixed_iters(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
             accept = new_cost < prev_cost
             lam_acc = torch.clamp(s.lam / 3.0, min=cfg.min_lambda)
         s = LMState(
-            poses=torch.where(_rows(accept, new_poses, seeds), new_poses,
-                              s.poses),
-            switches=torch.where(_rows(accept, new_switches, seeds),
+            poses=torch.where(linear.lane_rows(accept, new_poses, seeds),
+                              new_poses, s.poses),
+            switches=torch.where(linear.lane_rows(accept, new_switches, seeds),
                                  new_switches, s.switches),
             cost=torch.where(accept, new_cost, prev_cost),
             lam=torch.where(accept, lam_acc, lam_rej),

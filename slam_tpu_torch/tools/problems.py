@@ -22,13 +22,17 @@ constraints (``"sc"``, method 2) or their variable projection
   bogus loops of each of seeds 0-7, dataset poses, node 0 anchored, the
   Schur solver with 16 index blocks, each seed's partition padded to the
   maxima of ``partition_stats`` over the seeds, plain DCS, for
-  ``solver/batch.py``'s ``lm_fixed_iters_batch``.
+  ``solver/batch.py``'s ``lm_fixed_iters_batch``; or the same seeds on
+  PCG (``scripts/bench_pcg.py``'s settings: the tridiagonal
+  preconditioner, rtol 1e-6, 100 CG iterations) or on the Woodbury
+  solver (``scripts/bench_woodbury.py``: each seed's low-rank edges
+  padded to the seeds' largest count).
 
 - the chain batch, the DCS rescue's first consensus round on INTEL+50
   seed 42 (method 1, as the global solve sets it up): the plain solve,
   its psi, the first masks of the default chains, and the chains stacked
-  by ``solver/batch.py``'s ``chain_batch`` on the Schur or the dense
-  solver, for ``lm_solve_batch``.
+  by ``solver/batch.py``'s ``chain_batch`` on the Schur, dense, PCG or
+  Woodbury solver, for ``lm_solve_batch``.
 
 ``CONFIGS`` are the Schur factorisations they are compared under;
 :func:`reference_key` and :func:`sphere_reference_key` name the float64
@@ -203,6 +207,9 @@ def sphere2500(device, dtype) -> FixedCase:
 BATCH_SEEDS = tuple(range(8))
 BATCH_BLOCKS = 16
 BATCH_ITERS = 50
+#: PCG's settings in ``scripts/bench_pcg.py`` (its ``rtol``, ``maxit``).
+BENCH_PCG = dict(pcg_rtol=1e-6, pcg_max_iters=100,
+                 pcg_preconditioner="tridiag")
 
 
 class BatchCase(NamedTuple):
@@ -210,41 +217,59 @@ class BatchCase(NamedTuple):
 
     graphs: list       # each seed's canonical-order PoseGraph
     batch: object      # solver.batch.SeedBatch
-    cfg: object        # SolverConfig: plain DCS on the Schur solver
-    alone: list        # per seed: (lm_fixed_iters args, SchurPartition)
+    cfg: object        # SolverConfig: plain DCS on the batch's solver
+    alone: list        # per seed: (lm_fixed_iters args, its plan)
+    plan: object       # the batch's plan (batch.partition on Schur)
 
 
-def intel50_seed_batch(device, dtype) -> BatchCase:
+def intel50_seed_batch(device, dtype, linear_solver: str = "schur"
+                       ) -> BatchCase:
     """``bench.py``'s batch: ``add_random_outliers(50, seed=s)`` of INTEL
     for each seed, stacked by ``solver.batch.seed_batch``; and each seed
-    alone, with the same poses and free mask and its partition built with
-    the batch's pad shapes (the shapes it has inside the batch)."""
+    alone, with the same poses and free mask and its plan: on Schur its
+    partition built with the batch's pad shapes (the shapes it has inside
+    the batch), on Woodbury its own low-rank edges.  ``linear_solver``
+    "pcg" and "woodbury" are ``scripts/bench_pcg.py``'s and
+    ``scripts/bench_woodbury.py``'s batches of the same seeds."""
     import numpy as np
 
     from slam_tpu_torch.config import SolverConfig
     from slam_tpu_torch.io import g2o
-    from slam_tpu_torch.solver.batch import seed_batch
+    from slam_tpu_torch.solver.batch import batch_plan, seed_batch
     from slam_tpu_torch.solver.problem import anchor_first_node, \
         edge_set_from_graph
     from slam_tpu_torch.solver.schur import build_partition
+    from slam_tpu_torch.solver.woodbury import build_woodbury_ops
 
     graph = g2o.load_g2o(g2o.find_dataset("INTEL"))
     graphs = [graph.add_random_outliers(50, seed=s).canonical_order()
               for s in BATCH_SEEDS]
     batch = seed_batch(graphs, BATCH_BLOCKS, dtype=dtype, device=device)
+
+    def own_plan(g, edges):
+        if linear_solver == "schur":
+            return build_partition(np.asarray(g.edges_ij), g.num_nodes,
+                                   BATCH_BLOCKS, dtype=dtype, device=device,
+                                   pad_shapes=batch.pad_shapes)
+        if linear_solver == "woodbury":
+            return build_woodbury_ops(edges.ij.cpu().numpy(), g.num_nodes,
+                                      device=device)
+        return None
+
     alone = []
     for b, g in enumerate(graphs):
-        edges = edge_set_from_graph(g, dtype=dtype, device=device)
+        edges = edge_set_from_graph(g, dtype=dtype, device=device,
+                                    pad_to=batch.switches0.shape[1])
         alone.append(((batch.poses0[b], batch.switches0[b], edges,
                        anchor_first_node(g.num_nodes, dtype=dtype,
                                          device=device)),
-                      build_partition(np.asarray(g.edges_ij), g.num_nodes,
-                                      BATCH_BLOCKS, dtype=dtype,
-                                      device=device,
-                                      pad_shapes=batch.pad_shapes)))
-    cfg = SolverConfig(robust="dcs", linear_solver="schur",
-                       dtype=str(dtype).replace("torch.", ""))
-    return BatchCase(graphs, batch, cfg, alone)
+                      own_plan(g, edges)))
+    cfg = SolverConfig(robust="dcs", linear_solver=linear_solver,
+                       dtype=str(dtype).replace("torch.", ""),
+                       **(BENCH_PCG if linear_solver == "pcg" else {}))
+    plan = (batch.partition if linear_solver == "schur" else
+            batch_plan(batch.edges, linear_solver, batch.seeds))
+    return BatchCase(graphs, batch, cfg, alone, plan)
 
 
 class ChainCase(NamedTuple):
@@ -271,9 +296,9 @@ class ChainCase(NamedTuple):
 def intel50_chains(device, dtype_name: str, linear_solver: str = "auto",
                    masks=None) -> ChainCase:
     """INTEL+50 seed 42 under the rescue's first round: its chains stacked
-    on ``linear_solver`` ("auto" is the Schur solver at INTEL's size),
-    under ``masks`` or the masks the rescue builds from the plain solve on
-    that solver."""
+    on ``linear_solver`` ("auto" is the Schur solver at INTEL's size;
+    "dense", "pcg" or "woodbury"), under ``masks`` or the masks the rescue
+    builds from the plain solve on that solver."""
     from slam_tpu_torch.methods.global_solve import first_chain_masks
     from slam_tpu_torch.solver.batch import chain_batch
     from slam_tpu_torch.solver.linearize import loop_psi

@@ -67,7 +67,7 @@ def wall_case(args, cfg, part, iters: int) -> tuple[float, float]:
     res = lm_fixed_iters(*args, cfg, 2 * iters, partition=part)
     torch.cuda.synchronize()
     return ((time.perf_counter() - t0) * 1e3 / (2 * iters),
-            res.lin_iters / (2 * iters))
+            int(res.lin_iters) / (2 * iters))
 
 
 def linearize_host_us(args, cfg, reps: int = 50) -> dict:
@@ -129,14 +129,14 @@ def profile_case(args, cfg, part, iters: int, top: int,
         # The wall clock's window runs more CG iterations per LM iteration
         # than the profiled one (from the initial poses): compare them per
         # CG iteration.
-        cg = res.lin_iters / iters
+        cg = int(res.lin_iters) / iters
         per_cg = device_ms / cg
         out["cg_iters_per_iter"] = {"wall": wall_cg, "profiled": cg}
         out["busy_share"] = per_cg / (wall_ms / wall_cg)
         out["per_cg_iter"] = {
             "wall_ms": wall_ms / wall_cg, "device_ms": per_cg,
             "kernel_launches": launches / cg,
-            **{k: n / res.lin_iters for k, n in counts.items()}}
+            **{k: n / int(res.lin_iters) for k, n in counts.items()}}
     return out
 
 

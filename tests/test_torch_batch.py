@@ -359,9 +359,7 @@ def test_one_launch_per_kernel_call_of_one_seed(graphs, blocked):
 
 
 @pytest.mark.parametrize("kw", [dict(robust="sc"),
-                                dict(robust="sc", linear_solver="dense"),
-                                dict(linear_solver="pcg"),
-                                dict(linear_solver="woodbury")])
+                                dict(robust="sc", linear_solver="dense")])
 def test_what_the_batch_does_not_take_raises(graphs, kw):
     b = tb.seed_batch([convert.graph_from_jax(g) for g in graphs[:2]],
                       BLOCKS)

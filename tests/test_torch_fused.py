@@ -339,15 +339,19 @@ def test_no_host_read_inside_a_chunk(circle, runs, name):
 
 
 def test_pcg_eval_reads_its_stopping_test(circle, runs):
-    """The stated exception: the PCG eval reads its stopping flag every
-    CHECK_EVERY CG iterations and its count once a solve."""
+    """The stated exception: the PCG eval reads its CG stopping flag, every
+    CHECK_EVERY CG iterations of each folded call, and nothing else (its
+    count stays on the device): fewer reads than the two (the flag at
+    least once, the count once) that each LM iteration of each solve
+    made while every evaluation was its own call (this run: 159 reads in
+    36 calls, then 353 in 72)."""
     _, t = circle
     reads = []
     with pytest.MonkeyPatch.context() as mp:
         _watch_reads(mp, mcts_fused, reads.append)
         out, mgr = port_fused(t, 4, CASES["m4_expand_pcg"][1])
-    assert set(reads) == {"__bool__", "__int__"}
-    assert reads.count("__int__") == mgr.ss.iterations
+    assert set(reads) == {"__bool__"}
+    assert len(reads) < 2 * mgr.ss.iterations
     same_tree(out, runs["m4_expand_pcg"][2], atol=0)
 
 

@@ -5,7 +5,10 @@ on the CPU.
 
 The fixture is the dirty circle of ``tests/test_torch_methods.py``
 (``synthetic.circle_se2(n=64, seed=1)`` plus 6 outliers, seed 9).  The
-Schur eval takes ``BLOCKS`` index blocks in both packages.  Tolerances:
+Schur eval takes ``BLOCKS`` index blocks in both packages; the PCG eval
+the managers' accuracy (``LayeringConfig``'s ``eval_pcg_rtol`` and
+``eval_pcg_max_iters``), each lane with its own CG scalars and stopping
+test.  Tolerances:
 each folded lane against the JAX package's ``vmap`` of ``lm_fixed_iters``
 (``slam_tpu/methods/batched.py``, and the fused engines' eval with the
 partition) within ``JAX_TOL``, and against the port's own solve of that
@@ -41,7 +44,7 @@ BLOCKS = 4
 JAX_TOL = 1e-9
 SELF_TOL = 1e-12
 WIDTHS = (1, 2, 3, 10)
-SOLVERS = ("schur", "dense")
+SOLVERS = ("schur", "dense", "pcg")
 
 torch.set_num_threads(2)
 
@@ -53,10 +56,19 @@ def circle():
     return j, convert.graph_from_jax(j).canonical_order()
 
 
+def _pcg_kw(solver) -> dict:
+    """The managers' PCG accuracy on the PCG eval."""
+    if solver != "pcg":
+        return {}
+    lc = LayeringConfig()
+    return dict(pcg_rtol=lc.eval_pcg_rtol,
+                pcg_max_iters=lc.eval_pcg_max_iters)
+
+
 def port_setup(t, solver, trust_region="nielsen"):
     """(eval config, edge set, single plan) of the port."""
     cfg = SolverConfig(linear_solver=solver, dtype="float64", robust="none",
-                       trust_region=trust_region)
+                       trust_region=trust_region, **_pcg_kw(solver))
     e = edge_set_from_graph(t, dtype=torch.float64)
     plan = (ts.build_partition(t.edges_ij, t.num_nodes, BLOCKS)
             if solver == "schur" else batched.eval_plan(cfg, e))
@@ -65,7 +77,8 @@ def port_setup(t, solver, trust_region="nielsen"):
 
 def jax_setup(j, solver, trust_region="nielsen"):
     cfg = jcfg.SolverConfig(linear_solver=solver, dtype="float64",
-                            robust="none", trust_region=trust_region)
+                            robust="none", trust_region=trust_region,
+                            **_pcg_kw(solver))
     e = jedges(j.canonical_order(), dtype=jnp.float64)
     part = (js.build_partition(np.asarray(e.ij), j.num_nodes, BLOCKS,
                                dtype=jnp.float64)
@@ -74,9 +87,9 @@ def jax_setup(j, solver, trust_region="nielsen"):
 
 
 def jax_solves(j, solver, trust_region, poses, masks, frees, iters):
-    """``(poses, costs)`` of the JAX package's ``vmap``: on the dense eval
-    its ``batched_masked_solve``, on the Schur eval the same ``vmap`` with
-    the partition (as its fused engines' eval passes it)."""
+    """``(poses, costs)`` of the JAX package's ``vmap``: on the dense and
+    PCG evals its ``batched_masked_solve``, on the Schur eval the same
+    ``vmap`` with the partition (as its fused engines' eval passes it)."""
     cfg, e, part = jax_setup(j, solver, trust_region)
     if part is None:
         p, c = jbatched.batched_masked_solve(poses, masks, frees, e, cfg,
@@ -173,7 +186,7 @@ def test_folded_eval_cost_matches_the_jax_vmap(circle, solver, width,
     j, t = circle
     poses, masks, frees = candidates(t, width, seed=width)
     got = fold_eval_cost(t, solver, trust_region, poses, masks)
-    if solver == "dense":
+    if solver in ("dense", "pcg"):
         jc, je, _ = jax_setup(j, solver, trust_region)
         want = np.asarray(jbatched.batched_eval_cost(
             poses, masks, je, janchor(t.num_nodes, dtype=jnp.float64), jc,
@@ -238,35 +251,6 @@ def test_a_plan_of_another_width_is_refused(circle, solver):
             torch.as_tensor(poses), torch.as_tensor(masks),
             torch.as_tensor(frees), e, cfg, 1,
             tb.candidate_plan(e, cfg, plan, 2))
-
-
-def test_pcg_eval_keeps_its_loop_and_matches(circle):
-    """The stated exception (A19a): the PCG eval makes one
-    ``lm_fixed_iters`` call per candidate, no candidate plan, and matches
-    the JAX package as ``test_eval_cost_on_pcg_matches`` holds it."""
-    j, t = circle
-    lc = LayeringConfig()
-    kw = dict(linear_solver="pcg", dtype="float64", robust="none",
-              pcg_rtol=lc.eval_pcg_rtol, pcg_max_iters=lc.eval_pcg_max_iters)
-    cfg = SolverConfig(**kw)
-    e = edge_set_from_graph(t, dtype=torch.float64)
-    poses, masks, _ = candidates(t, 3, seed=4)
-    calls = []
-    orig = batched.lm_fixed_iters
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(batched, "lm_fixed_iters",
-                   lambda *a, **k: calls.append(1) or orig(*a, **k))
-        mp.setattr(tb, "candidate_plan", None)
-        got = batched.batched_eval_cost(
-            torch.as_tensor(poses), torch.as_tensor(masks), e,
-            anchor_first_node(t.num_nodes), cfg, 2, None)
-    assert len(calls) == 3
-    want = jbatched.batched_eval_cost(
-        poses, masks, jedges(j.canonical_order(), dtype=np.float64),
-        janchor(t.num_nodes, dtype=np.float64),
-        jcfg.SolverConfig(**kw), 2)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
-                               atol=JAX_TOL)
 
 
 # ---------------------------------------------------------------------------

@@ -277,7 +277,8 @@ def test_eval_cost_on_pcg_matches(circle):
     (je, jc), (te, tc, plan) = _pair_setup(
         circle, "pcg", pcg_rtol=lc.eval_pcg_rtol,
         pcg_max_iters=lc.eval_pcg_max_iters)
-    assert plan is None
+    # The single problem's PCG plan, from which a batch stacks its lanes'.
+    assert plan == batched.linear.PCGPlan()
     assert eval_solver_config(_SOLVER.replace(linear_solver="pcg"), lc,
                               t.num_nodes) == tc.replace(
         huber_delta=lc.huber_delta)

@@ -15,8 +15,6 @@ and against the port's ``lm_solve`` of that chain alone within
 ``SELF_TOL`` (measured: equal to the bit).
 """
 
-import dataclasses
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -202,19 +200,26 @@ def test_batched_dense_solve_matches_each_lane(chains):
                                    rtol=0, atol=SELF_TOL)
 
 
+#: PCG and Woodbury run the rescue capped at 5 LM iterations and 2 rounds.
+CAPPED = ("pcg", "woodbury")
+
+
 def rescue_cfg(solver, n_chains=6) -> jcfg.RunConfig:
     """The JAX package's run of the rescue fixture (as
-    ``test_circle_rescue_path_matches`` runs it)."""
+    ``test_circle_rescue_path_matches`` runs it; capped on the solvers of
+    :data:`CAPPED`)."""
+    cap = (dict(max_iterations=5, dcs_consensus_rounds=2)
+           if solver in CAPPED else dict(max_iterations=15))
     return jcfg.RunConfig(method=1, num_outliers=OUTLIERS, seed=SEED,
                           solver=jcfg.SolverConfig(
-                              dtype="float64", max_iterations=15,
-                              linear_solver=solver,
+                              dtype="float64", linear_solver=solver,
                               dcs_consensus_chains=n_chains,
-                              dcs_consensus_drop_frac=0.0))
+                              dcs_consensus_drop_frac=0.0, **cap))
 
 
 @pytest.mark.parametrize("solver,n_chains", [("dense", 6), ("schur", 6),
-                                             ("schur", 2)])
+                                             ("schur", 2), ("pcg", 6),
+                                             ("woodbury", 6)])
 def test_rescue_matches_the_jax_run(dirty, solver, n_chains):
     """The whole rescue through both packages: identical log records (the
     trigger, rounds, candidates, costs, the chosen chain), poses to
@@ -224,11 +229,10 @@ def test_rescue_matches_the_jax_run(dirty, solver, n_chains):
     assert retry["candidates"] >= n_chains and retry["rounds"] >= 2
 
 
-@pytest.mark.parametrize("solver", ["dense", "schur", "pcg"])
+@pytest.mark.parametrize("solver", ["dense", "schur", "pcg", "woodbury"])
 def test_a_round_is_one_solve_and_one_psi(dirty, monkeypatch, solver):
     """Each consensus round calls ``lm_solve`` once for all the chains
-    and ``loop_psi`` once for all their poses; PCG (no batch yet) solves
-    them one by one."""
+    and ``loop_psi`` once for all their poses, on every linear solver."""
     calls = {"batched": 0, "psi": 0, "alone": 0}
 
     def counted(key, fn):
@@ -242,21 +246,14 @@ def test_a_round_is_one_solve_and_one_psi(dirty, monkeypatch, solver):
     monkeypatch.setattr(tgs, "loop_psi", counted("psi", tgs.loop_psi))
     log = Capture()
     cfg = convert.config_from_jax(rescue_cfg(solver))
-    if solver == "pcg":
-        cfg = dataclasses.replace(cfg, solver=cfg.solver.replace(
-            max_iterations=5, dcs_consensus_rounds=2))
     tgs.run_global_solve(convert.graph_from_jax(dirty), cfg, log,
                          device="cpu")
     retry = dict(log.records)["retry"]
     gnc = int(retry["candidates"] > cfg.solver.dcs_consensus_chains)
     rounds = retry["rounds"]
-    if solver == "pcg":
-        assert calls["batched"] == 0
-        assert calls["alone"] > 1 + gnc + rounds
-        assert calls["psi"] == calls["alone"] - gnc
-    else:
-        assert calls == {"batched": rounds, "psi": 1 + rounds,
-                         "alone": 1 + gnc}
+    assert rounds >= 2
+    assert calls == {"batched": rounds, "psi": 1 + rounds,
+                     "alone": 1 + gnc}
 
 
 @pytest.mark.parametrize("solver", SOLVERS)
