@@ -38,16 +38,19 @@ the script exits non-zero and prints no result line):
      node 0 free, on the stacked plan of ten lanes), and a windowed
      commit;
    - ``micro_chol_inv`` on SPD batches of (16, 128, 128) and
-     (32, 128, 128), of 48, 80 and 128 such panels (where the kernel
-     takes 2 and 1 CTAs a matrix; 128 is the seed batch's, 8 seeds x 16
-     interiors), and on real panels: the first and the trailing
-     diagonal panel of the equilibrated Schur interiors of INTEL+50,
-     M10000+50 and the sphere2500 recipe (D = 6, D ni = 3450) at their
-     initial poses, lambda = 1e-4; ``micro_chol_inv_folded`` on the
-     (8, 16, 128, 128) view of the 128 SPD panels and on the seed batch's
-     real first and trailing panels folded over its 8 seeds; L bitwise
-     equal to the plain version's of the flat batch, the inverse within
-     TOL (SPD) or RESID_FACTOR (real panels);
+     (32, 128, 128), of 48, 80, 96 and 128 such panels (past 33 panels
+     the split schedule: the factor, then the inverse in a second
+     launch; 96 is the rescue's chain batch, 6 chains x 16 interiors,
+     128 the seed batch's, 8 seeds x 16), and on real panels: the first
+     and the trailing diagonal panel of the equilibrated Schur interiors
+     of INTEL+50, M10000+50 and the sphere2500 recipe (D = 6, D ni =
+     3450) at their initial poses, lambda = 1e-4;
+     ``micro_chol_inv_folded`` on the (6, 16, 128, 128) and
+     (8, 16, 128, 128) views of the 96 and 128 SPD panels and on the seed
+     batch's real first and trailing panels folded over its 8 seeds, in
+     float32 and float64; L bitwise equal to the plain version's of the
+     flat batch, the inverse within TOL (SPD) or RESID_FACTOR (real
+     panels);
    - the DCS rescue's chain batch (``tools/problems.intel50_chains``: the
      first consensus round of ``INTEL 50 1 --seed 42``, its six chains'
      masks on six copies of the problem, 9216 edges over 7368 nodes): one
@@ -56,7 +59,8 @@ the script exits non-zero and prints no result line):
      dense solver (six 3684 x 3684 matrices) recorded and replayed as
      above, the linearisation on the chains' masks held to its plain
      version; ``micro_chol_inv_folded`` on the chain batch's real first
-     and trailing panels folded over its six chains; one batched iteration
+     and trailing panels folded over its six chains (float32 and
+     float64); one batched iteration
      of that chain batch, and of the INTEL+50 seed batch of seeds 0-7, on
      PCG (3 CG iterations) and on the Woodbury solver, recorded and
      replayed as above;
@@ -109,9 +113,10 @@ the script exits non-zero and prints no result line):
    and the batched iterations of each round) and their solves' wall; (c) ``INTEL 50 1 --seed 42 --linear-solver dense`` through the
    CLI (the chains on the batched dense solver), float32: ATE below
    ``ATE_GATE_M``, its rounds, wall and peak allocated memory; (d) the
-   first round's float32 batched solve on the Schur and the dense solver:
-   wall and launches per batched iteration, and (with the kernels'
-   times, under torch.profiler) device ms and busy share;
+   first round's float32 batched solve on the Schur solver (native, and
+   blocked with ``micro_chol_inv``: its 96 folded panels) and on the
+   dense solver: wall and launches per batched iteration, and (with the
+   kernels' times, under torch.profiler) device ms and busy share;
 6g. ``pcg_batch``: the batched PCG (``linear.pcg_solve(seeds=)``, each
    lane its own CG scalars and stopping test): (a) float64, the rescue's
    first round (the six chains under the masks the Schur rescue builds)
@@ -270,7 +275,9 @@ the script exits non-zero and prints no result line):
    ``micro_chol_inv`` in float64): per launch and per plan of the
    recorded iterations (``micro_chol_inv`` on the real (16, 128, 128)
    INTEL and (32, 128, 128) M10000 batches), and on the SPD batches
-   (``micro_chol_inv_folded`` on (8, 16, 128, 128)):
+   (``micro_chol_inv_folded`` on (6, 16, 128, 128) and (8, 16, 128, 128),
+   float32 and float64, with the schedule and the device kernels a
+   call):
    the kernel (``ms``: CUDA
    events around 50 back-to-back calls; ``device_ms``: its device events
    under torch.profiler; ``host_us``: host time per call with no sync),
@@ -463,6 +470,10 @@ PROFILE_SYMBOLS = {"gather_rows": "gather_rows_kernel",
                    "fused_linearize_se2": "linearize_se2_kernel",
                    "micro_chol_inv": "micro_chol_inv_kernel"}
 PANEL = 128               # schur_panel of the blocked path
+# Panels of 128 that micro_chol_inv_folded takes on the blocked path: the
+# rescue's chain batch (6 chains x 16 interiors) and the seed batch (8
+# seeds x 16): the folded count's leading axis.
+FOLDED_LEADS = {96: 6, 128: 8}
 # [seed_batch]: its gate of bench.py (bench.py:161): every seed's cost0 >
 # 2 and cost < 0.6 x cost0, after tools/problems.BATCH_ITERS (bench.py's
 # LM_ITERS) iterations.
@@ -973,10 +984,11 @@ def time_chol(A, err: float, peaks, summary, lead: tuple = ()):
     view; with ``summary``, the result line's.  Returns ``(rows, fns,
     report)`` for :func:`phase_kernel_times`."""
     from slam_tpu_torch.ops.chol import micro_chol_inv, \
-        micro_chol_inv_folded, micro_chol_inv_plain
+        micro_chol_inv_folded, micro_chol_inv_plain, schedule, sm_count
     from slam_tpu_torch.tools import kernel_times as kt
 
     m = A.shape[0]
+    shape = schedule(m, A.shape[-1], A.dtype, sm_count(A.get_device()))
     name = "micro_chol_inv_folded" if lead else "micro_chol_inv"
     if lead:
         A4 = A.view(*lead, -1, *A.shape[1:])
@@ -1002,13 +1014,19 @@ def time_chol(A, err: float, peaks, summary, lead: tuple = ()):
             dtype=str(A.dtype).replace("torch.", ""), max_abs_err=err,
             ms=round(row["ms"], 5),
             device_ms=round(row["device_ms"], 5),
+            device_kernels_per_call=row["device_events"],
+            launches_per_call=1, schedule=json.dumps(shape._asdict()),
             host_us=round(row["host_us"], 2),
             plain_ms=round(row["plain_ms"], 5),
             library_ms=round(row["library_ms"], 5), bound_ms=round(b_ms, 6),
-            bound_by=b_by)
+            bound_by=b_by, schedule_kernels_per_call=shape.kernels,
+            device_ms_by_kernel=json.dumps({
+                k.split("(")[0]: round(ms, 5)
+                for k, ms in row["device_kernels"].items()}))
         if summary is not None:
             summary[name] = {
-                k: v for k, v in row.items() if k != "device_events"}
+                k: v for k, v in row.items()
+                if k not in ("device_events", "device_kernels")}
 
     return [row], [kernel], report
 
@@ -1182,10 +1200,11 @@ def phase_kernels(device, peaks, timings: list) -> dict:
                        "residual")
 
         # SPD batches at the path's panel counts (16 INTEL, 32 M10000),
-        # timed; and at larger batches, where the kernel takes 2 and 1
-        # CTAs a matrix (4 m and 2 m past the SM count); 128 is the seed
-        # batch's folded shape (8 seeds x 16 interiors).
-        for m in (16, 32, 48, 80, 128):
+        # timed; and at larger batches, past 4 m > the SM count, where the
+        # kernel splits the factor and the inverse; 96 and 128 are the
+        # folded shapes of the chain batch (6 chains x 16 interiors) and
+        # the seed batch (8 seeds x 16), timed through the fold.
+        for m in (16, 32, 48, 80, 96, 128):
             rng = np.random.default_rng(m)
             G = rng.normal(size=(m, PANEL, PANEL))
             A = torch.as_tensor(G @ G.transpose(0, 2, 1)
@@ -1197,37 +1216,45 @@ def phase_kernels(device, peaks, timings: list) -> dict:
                     time_chol, A, err, peaks,
                     summary if m == 16 and dtype == torch.float32
                     else None))
-            elif m == 128 and dtype == torch.float32:
+            elif m in FOLDED_LEADS:
+                lead = (FOLDED_LEADS[m],)
+                err = max(err, check_folded(device, A, lead, chains
+                                            if m == 128 else None))
                 timings.append(functools.partial(
-                    time_chol, A, check_folded(device, A, chains), peaks,
-                    summary, lead=(8,)))
+                    time_chol, A, err, peaks,
+                    summary if m == 128 and dtype == torch.float32
+                    else None, lead=lead))
     return summary
 
 
-def check_folded(device, A, chains) -> float:
+def check_folded(device, A, lead: tuple, chains=None) -> float:
     """``micro_chol_inv_folded`` held to the plain version of the flat
-    batch: on the (8, 16, 128, 128) view of the 128 SPD panels ``A``, on
-    the seed batch's real first and trailing panels (8 seeds x 16
-    interiors, folded over the seeds), and on those of the float32 chain
-    batch ``chains`` (6 chains x 16 interiors, under the first round's
-    masks).  Returns the largest error."""
+    batch: on the ``(*lead, M / prod(lead), 128, 128)`` view of the SPD
+    panels ``A``; with ``chains`` (the chain batch of ``A``'s dtype: 6
+    chains x 16 interiors under the first round's masks), also on the
+    seed batch's real first and trailing panels (8 seeds x 16 interiors,
+    folded over the seeds) and on those of ``chains``.  Returns the
+    largest error."""
     from slam_tpu_torch.tools.problems import intel50_seed_batch
 
-    errs = [check_chol("spd128", A, "float32", "spd", lead=(8,))]
-    b = intel50_seed_batch(device, torch.float32).batch
+    name = str(A.dtype).replace("torch.", "")
+    errs = [check_chol(f"spd{A.shape[0]}", A, name, "spd", lead=lead)]
+    if chains is None:
+        return errs[0]
+    b = intel50_seed_batch(device, A.dtype).batch
     poses, _, edges, free = chains.flat_args
-    for label, lead, args in (
+    for label, lanes, args in (
             ("seed-batch", b.seeds, (b.edges, b.free,
                                      b.poses0.reshape(-1, 3), b.partition)),
             ("chain-batch", chains.chains.chains,
              (edges, free, poses, chains.chains.partition))):
         panels = real_panels(*args)
-        log("kernels", panels=label, dtype="float32", lanes=lead,
+        log("kernels", panels=label, dtype=name, lanes=lanes,
             blocks=args[3].num_blocks, interior_dim=panels["n"],
             padded=panels["n_pad"])
         for which in ("first", "trailing"):
             errs.append(check_chol(f"{label}-{which}", panels[which],
-                                   "float32", "residual", lead=(lead,)))
+                                   name, "residual", lead=(lanes,)))
     return max(errs)
 
 
@@ -1736,7 +1763,7 @@ def phase_rescue_batch(device, smi: str, timings: list) -> dict:
     from slam_tpu_torch import ops
     from slam_tpu_torch.solver.batch import lane, lm_solve_batch
     from slam_tpu_torch.solver.lm import lm_solve
-    from slam_tpu_torch.tools.problems import intel50_chains
+    from slam_tpu_torch.tools.problems import CONFIGS, intel50_chains
 
     # (a) float64: the first round, each lane against its chain alone.
     t0 = time.perf_counter()
@@ -1828,16 +1855,20 @@ def phase_rescue_batch(device, smi: str, timings: list) -> dict:
         raise AssertionError("dense CLI: no batched consensus round")
     require_launches("rescue_batch_dense", dense_counts)
 
-    # (d) float32: the first round's batched solve on the Schur and the
-    # dense solver, its wall and launches per batched iteration; its
+    # (d) float32: the first round's batched solve on the Schur solver
+    # (native, and blocked with the kernel on its 96 folded panels) and
+    # the dense solver, its wall and launches per batched iteration; its
     # device time and busy share under the profiler, after every other
     # time.
     schur = intel50_chains(device, "float32")
-    cases = {"schur": schur, "dense": intel50_chains(
-        device, "float32", "dense", masks=schur.masks)}
+    dense = intel50_chains(device, "float32", "dense", masks=schur.masks)
+    cases = {"schur": (schur, schur.prob.scfg),
+             "blocked_micro": (schur, schur.prob.scfg.replace(
+                 **CONFIGS["blocked_micro"])),
+             "dense": (dense, dense.prob.scfg)}
     walls_ms = {}
-    for name, c in cases.items():
-        cfg, part = c.prob.scfg, c.chains.partition
+    for name, (c, cfg) in cases.items():
+        part = c.chains.partition
         lm_solve_batch(*c.args, cfg.replace(max_iterations=2), part)
         torch.cuda.synchronize()
         ops.reset_launches()
@@ -1855,10 +1886,10 @@ def phase_rescue_batch(device, smi: str, timings: list) -> dict:
             card=json.dumps(smi))
 
     def device_times():  # profiled in the report, after every other time
-        for name, c in cases.items():
+        for name, (c, cfg) in cases.items():
             log("rescue_batch", dtype="float32", solver=name,
-                **batch_device_ms(lambda n, c=c: lm_solve_batch(
-                    *c.args, c.prob.scfg.replace(max_iterations=n),
+                **batch_device_ms(lambda n, c=c, cfg=cfg: lm_solve_batch(
+                    *c.args, cfg.replace(max_iterations=n),
                     c.chains.partition), walls_ms[name]),
                 wall_ms_per_iter=walls_ms[name], card=json.dumps(smi))
 

@@ -46,19 +46,52 @@
 //     chain from row to row is a product, the four-way sum, the division
 //     and the shuffle (inverse_column).  Columns c and p - 1 - c go to one
 //     warp, so each warp walks p + 1 rows;
-//   - with several CTAs per matrix (blockIdx.y), each factors the whole
-//     matrix, then writes its share of the rows of L and inverts its share
-//     of the column pairs.  A thread-block cluster of 2 or 4 CTAs sharing
-//     one factor (each CTA a band of rows, column j broadcast through
-//     distributed shared memory, a cluster barrier per column) gave the
-//     same bits but took 2.0-2.7 times as long on the H100 (PERF.md).  A
-//     CTA has 512 threads where their registers hold the tile (p <= 128 in
-//     float32, 64 in float64; 16 warps for the inverse while the factor
-//     runs on the first 256), else 256.  The batch gets 4 CTAs per
-//     matrix while 4 m is at most the SM count, else 2 or 1, so that the
-//     grid runs in one wave: a second wave would repeat the whole factor.
-//     On the H100 at m = 16 and 32 and p = 128, 512 threads x 4 CTAs were
-//     the fastest of 256 or 512 threads x 1, 2 or 4 CTAs (PERF.md).
+//   - the launch shape comes from the caller (ops/chol.py::schedule, from
+//     the batch m, p, the dtype and the SM count).  While 4 m is at most
+//     the SM count (B4's 16 and 32 panels on the H100), one launch: several
+//     CTAs per matrix (blockIdx.y), each factoring the whole matrix, then
+//     writing its share of the rows of L and inverting its share of the
+//     column pairs; 512 threads where their registers hold the tile (p <=
+//     128 in float32, 64 in float64; 16 warps for the inverse while the
+//     factor runs on the first 256), else 256; 4 CTAs per matrix while
+//     4 m fits the SMs, else 2 or 1, so that the grid runs in one wave: a
+//     second wave would repeat the whole factor.  On the H100 at m = 16
+//     and 32 and p = 128, 512 threads x 4 CTAs were the fastest of 256 or
+//     512 threads x 1, 2 or 4 CTAs (PERF.md).  A thread-block cluster of 2
+//     or 4 CTAs sharing one factor (each CTA a band of rows, column j
+//     broadcast through distributed shared memory, a cluster barrier per
+//     column) gave the same bits but took 2.0-2.7 times as long;
+//   - the folded batches (m = 96 and 128 panels of 128: the rescue's six
+//     chains and the seed batch's eight seeds, 16 interiors each) leave one
+//     CTA per matrix, whose 16 warps (8 in float64) walked 4 (8) column
+//     pairs each, one after another, while the factor cost what it costs
+//     at 16 panels.  A second CTA per matrix cannot share the SM (512
+//     threads x 128 registers fill it).  So past 4 m > SMs (p <= 128) the
+//     schedule splits: the factor runs on one CTA of 256 threads per
+//     matrix (INV false) and writes L; a second launch,
+//     micro_chol_inverse_kernel, stages L's lower triangle back from L2
+//     into shared memory and inverts on 1024-thread CTAs (at most 64
+//     registers a thread, one CTA an SM), as many per matrix as one wave
+//     holds and the pairs can use: each warp walks at most 2 pairs (1 at
+//     m <= SMs / 2), 8 warps a scheduler, each column on the fewest
+//     register rows that cover it and with no predicate on its updates.
+//     Each step's division, which every lane of the warp issues, is
+//     div_rcp: the reciprocal of each row's diagonal once, then a product
+//     and two FMAs, the same quotient to the bit.  On the H100 the
+//     division was the largest part of the inverse (and its slow-path
+//     check made real panels twice as slow as SPD ones), the shuffle and
+//     the loads each a tenth or so; spreading the SM's 64 pair chains over
+//     8 warps a scheduler instead of 4 gained little by itself: the
+//     inverse is bound by the SM's issue (PERF.md).  Tried and not kept:
+//     a left-looking inverse, a warp per block of 8 columns (a lane per
+//     column and residue, each of the four partial sums of X[i, c] summed
+//     in a lane), in one launch with the factor: the same bits, but each
+//     row of column 0's block is a chain of loads, sums, shuffles and a
+//     division, 128 rows in a row, as slow as the pairs in float32.  Not
+//     tried: one launch whose warps interleave two column chains, since
+//     the pairs are short of issue, not of warps to hide latency.  The
+//     arithmetic is the same, so L and the inverse are bitwise the single
+//     launch's.
 // Shared memory: the p x (p + 1) tile (odd row stride: column reads are free
 // of bank conflicts) and a p-vector, 66,560 bytes at p = 128 in float32, so
 // p reaches 240 (float32) or 169 (float64) within the 232,448 bytes a block
@@ -67,10 +100,12 @@
 // thread has with 512.
 //
 // Bound: a matrix needs about 2/3 p^3 flops and p (p + 1) / 2 + 2 p^2
-// elements of traffic; at the Schur panels (p = 128, 16 to 32 matrices) the
-// card could finish in under a microsecond.  The kernel is latency-bound:
-// p barrier steps in the factor, whose issue the 256 threads of one SM
-// share, and, in the inverse, column 0's chain of p dependent rows.
+// elements of traffic; at the Schur panels (p = 128, 16 to 128 matrices)
+// the card could finish in a few microseconds.  The kernel is
+// latency-bound: p barrier steps in the factor, whose issue the 256
+// threads of one SM share, and, in the inverse, column 0's chain of p
+// dependent rows; in the split inverse, each SM's issue of 64 pair chains
+// of ~30 instructions a step.
 
 #include "common.cuh"
 
@@ -90,6 +125,27 @@ __device__ __forceinline__ float add_rn(float a, float b) {
 }
 __device__ __forceinline__ double add_rn(double a, double b) {
   return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float fma_rn(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+// 1 / x rounded to nearest.
+__device__ __forceinline__ float rcp_rn(float x) { return __frcp_rn(x); }
+__device__ __forceinline__ double rcp_rn(double x) { return __drcp_rn(x); }
+
+// a / b rounded to nearest, from y = rcp_rn(b): q = RN(a y) is within an
+// ulp of a / b, r = a - b q is exact in one FMA, and RN(q + r y) is the
+// correctly rounded quotient (Markstein's theorem; no underflow or
+// overflow on these panels: b is a Cholesky diagonal, a a sum of
+// products of L and X).  So it equals a / b to the bit, with y computed
+// once per row instead of a division per step.
+template <typename T>
+__device__ __forceinline__ T div_rcp(T a, T b, T y) {
+  const T q = mul_rn(a, y);
+  return fma_rn(fma_rn(-b, q, a), y, q);
 }
 
 // One element from global to shared memory, asynchronously.
@@ -114,18 +170,25 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // increasing k, and the chain from one row to the next is one product, the
 // four-way sum, the division and the shuffle; the other rows' products are
 // off it.  X[i, c] goes to the free upper triangle, transposed, the
-// diagonal of X to xdiag.
-template <typename T, int RL, int ROT>
+// diagonal of X to xdiag.  With ALL, every lane adds its products into all
+// its rows of blocks >= t, with no predicate: a row at or above step j, or
+// past the column's end, takes products that nothing reads again (its sum
+// was taken, or is never taken), so the rows below take exactly the same
+// terms, in fewer instructions; and the division is div_rcp, the same
+// quotient with the reciprocal of each row's diagonal taken once.
+template <typename T, int RL, int ROT, bool ALL = false>
 __device__ __forceinline__ void inverse_column(T* s, int ld, int p, int c,
                                                T* xdiag, int lane) {
   const int n = p - c;
   T acc[RL][4];
   T lii[RL];
+  T rii[RL];    // ALL: rcp_rn(lii)
   int row[RL];  // offset of L[c + lane + 32 t, c] in the tile
 #pragma unroll
   for (int t = 0; t < RL; ++t) {
     const int i = min(c + lane + 32 * t, p - 1);
     lii[t] = s[i * ld + i];
+    if constexpr (ALL) rii[t] = rcp_rn(lii[t]);
     row[t] = i * ld + c;
 #pragma unroll
     for (int r = 0; r < 4; ++r) acc[t][r] = T(0);
@@ -146,8 +209,10 @@ __device__ __forceinline__ void inverse_column(T* s, int ld, int p, int c,
         // Other lanes divide 1 by 1, so only the owner's division can take
         // the slow path.
         const T num = own ? (j == 0 ? T(1) : T(0)) - sum : T(1);
-        const T x = __shfl_sync(0xffffffffu, num / (own ? lii[t] : T(1)),
-                                jj);
+        const T den = own ? lii[t] : T(1);
+        const T x = __shfl_sync(
+            0xffffffffu,
+            ALL ? div_rcp(num, den, own ? rii[t] : T(1)) : num / den, jj);
         if (own && j < n) {
           if (j == 0) {
             xdiag[c] = x;
@@ -158,7 +223,7 @@ __device__ __forceinline__ void inverse_column(T* s, int ld, int p, int c,
 #pragma unroll
         for (int t2 = t; t2 < RL; ++t2) {
           const int j2 = lane + 32 * t2;
-          if ((t2 > t || lane > jj) && j2 < n) {
+          if (ALL || ((t2 > t || lane > jj) && j2 < n)) {
             acc[t2][rr] = add_rn(acc[t2][rr], mul_rn(s[row[t2] + j], x));
           }
         }
@@ -181,7 +246,9 @@ __device__ __forceinline__ void invert_column(T* s, int ld, int p, int c,
 // The factor's thread grid: kR x kR threads, the first kR^2 of the CTA.
 constexpr int kR = 16;
 
-template <typename T, int TR, int NW>
+// With INV false the kernel stops after writing L (the split schedule's
+// first launch; micro_chol_inverse_kernel below inverts).
+template <typename T, int TR, int NW, bool INV>
 __global__ void __launch_bounds__(NW * 32)
 micro_chol_inv_kernel(const T* __restrict__ a, T* __restrict__ l_out,
                       T* __restrict__ inv_out, int p) {
@@ -282,6 +349,7 @@ micro_chol_inv_kernel(const T* __restrict__ a, T* __restrict__ l_out,
     T* dst = l_out + base + static_cast<int64_t>(i) * p;
     for (int c = lane; c < p; c += 32) dst[c] = c <= i ? s[i * ld + c] : T(0);
   }
+  if constexpr (!INV) return;
 
   // The inverse: a warp per column pair (q, p - 1 - q), the pairs q of
   // this CTA's residue mod slices.  No barrier until the write-out.
@@ -301,18 +369,107 @@ micro_chol_inv_kernel(const T* __restrict__ a, T* __restrict__ l_out,
   }
 }
 
-template <typename T, int TR, int NW>
+// The split schedule's inverse: the CTA stages L's lower triangle, written
+// by the factor launch, back into shared memory, and its warps invert the
+// column pairs q = slice + slices w + slices NW k, as the single launch's
+// do, each column on the fewest register rows that cover it and with no
+// predicate on its updates (the arithmetic, and so the bits, are the
+// same).
+template <typename T, int RL>
+__device__ __forceinline__ void invert_column_fit(T* s, int ld, int p, int c,
+                                                  T* xdiag, int lane) {
+  const int need = (p - c + 31) / 32;
+#define SLAM_FIT(R)                                                       \
+  switch (c & 3) {                                                        \
+    case 0: return inverse_column<T, R, 0, true>(s, ld, p, c, xdiag, lane); \
+    case 1: return inverse_column<T, R, 1, true>(s, ld, p, c, xdiag, lane); \
+    case 2: return inverse_column<T, R, 2, true>(s, ld, p, c, xdiag, lane); \
+    default:                                                              \
+      return inverse_column<T, R, 3, true>(s, ld, p, c, xdiag, lane);     \
+  }
+  if constexpr (RL >= 4) {
+    if (need > 3) SLAM_FIT(4)
+  }
+  if constexpr (RL >= 3) {
+    if (need > 2) SLAM_FIT(3)
+  }
+  if constexpr (RL >= 2) {
+    if (need > 1) SLAM_FIT(2)
+  }
+  SLAM_FIT(1)
+#undef SLAM_FIT
+}
+
+template <typename T, int RL, int NW>
+__global__ void __launch_bounds__(NW * 32)
+micro_chol_inverse_kernel(const T* __restrict__ l, T* __restrict__ inv_out,
+                          int p) {
+  extern __shared__ unsigned char smem_raw[];
+  T* s = reinterpret_cast<T*>(smem_raw);
+  const int ld = p + 1;
+  T* xdiag = s + p * ld;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * p * p;
+  const int slice = blockIdx.y;
+  const int slices = gridDim.y;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  // Column q's inverse reads rows and columns >= q of L; the CTA's first
+  // column is its slice.
+  for (int i = slice + warp; i < p; i += NW) {
+    const T* src = l + base + static_cast<int64_t>(i) * p;
+    for (int c = slice + lane; c <= i; c += 32) {
+      cp_async(s + i * ld + c, src + c);
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  for (int q = slice + slices * warp; 2 * q < p; q += slices * NW) {
+    invert_column_fit<T, RL>(s, ld, p, q, xdiag, lane);
+    if (p - 1 - q != q) {
+      invert_column_fit<T, RL>(s, ld, p, p - 1 - q, xdiag, lane);
+    }
+  }
+  __syncthreads();
+  for (int i = warp; i < p; i += NW) {
+    T* dst = inv_out + base + static_cast<int64_t>(i) * p;
+    for (int c = lane; c < p; c += 32) {
+      if ((c < p - 1 - c ? c : p - 1 - c) % slices != slice) continue;
+      dst[c] = c < i ? s[c * ld + i] : (c == i ? xdiag[c] : T(0));
+    }
+  }
+}
+
+template <typename Kernel>
+int set_smem(Kernel kernel, size_t smem) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+}
+
+template <typename T, int TR, int NW, bool INV>
 int launch_chol(const void* a, void* l_out, void* inv_out, int64_t m,
                 int64_t p, int ctas, cudaStream_t stream) {
   const size_t smem = sizeof(T) * static_cast<size_t>(p * (p + 2));
-  cudaError_t err = cudaFuncSetAttribute(
-      micro_chol_inv_kernel<T, TR, NW>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  micro_chol_inv_kernel<T, TR, NW>
+  const int err = set_smem(micro_chol_inv_kernel<T, TR, NW, INV>, smem);
+  if (err != 0) return err;
+  micro_chol_inv_kernel<T, TR, NW, INV>
       <<<dim3(static_cast<unsigned int>(m), ctas), NW * 32, smem, stream>>>(
           static_cast<const T*>(a), static_cast<T*>(l_out),
           static_cast<T*>(inv_out), static_cast<int>(p));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int RL, int NW>
+int launch_inverse(const void* l, void* inv_out, int64_t m, int64_t p,
+                   int ctas, cudaStream_t stream) {
+  const size_t smem = sizeof(T) * static_cast<size_t>(p * (p + 2));
+  const int err = set_smem(micro_chol_inverse_kernel<T, RL, NW>, smem);
+  if (err != 0) return err;
+  micro_chol_inverse_kernel<T, RL, NW>
+      <<<dim3(static_cast<unsigned int>(m), ctas), NW * 32, smem, stream>>>(
+          static_cast<const T*>(l), static_cast<T*>(inv_out),
+          static_cast<int>(p));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -323,34 +480,55 @@ struct MaxTile {
   static constexpr int value = sizeof(T) == 4 ? 15 : 11;
 };
 
+// The launch shape comes from the caller (ops/chol.py::schedule), which
+// knows the SM count; a shape with no compiled kernel is refused.
+//   single: one launch of ctas CTAs a matrix (a power of two) of threads
+//     threads, 512 where a thread's 128 registers hold the tile (p <= 128
+//     in float32, 64 in float64), else 256;
+//   split (p <= 128): the factor, ctas CTAs a matrix of 256 threads, then
+//     the inverse, inverse_ctas CTAs a matrix of 1024 threads.
 template <typename T>
 int micro_chol_inv(const void* a, void* l_out, void* inv_out, int64_t m,
-                   int64_t p, void* stream) {
-  if (m <= 0 || p <= 0) return 0;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int ctas = 4 * m <= sms ? 4 : (2 * m <= sms ? 2 : 1);
+                   int64_t p, int ctas, int threads, int split,
+                   int inverse_ctas, int inverse_threads, void* stream) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (m < 0 || p < 0 || ctas < 1 || (ctas & (ctas - 1)) != 0) return invalid;
+  if (m == 0 || p == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SLAM_CHOL(TR, NW) \
-  return launch_chol<T, TR, NW>(a, l_out, inv_out, m, p, ctas, s)
-  // 512 threads where a thread's 128 registers hold its tile: p <= 128 in
-  // float32, 64 in float64.
-  if (p <= 32) SLAM_CHOL(2, 16);
-  if (p <= 64) SLAM_CHOL(4, 16);
-  if (p <= 128) {
-    if constexpr (sizeof(T) == 4) {
-      SLAM_CHOL(8, 16);
-    } else {
-      SLAM_CHOL(8, 8);
+  if (!split) {
+#define SLAM_CHOL(TR, NW)                                                 \
+  return threads == NW * 32                                               \
+             ? launch_chol<T, TR, NW, true>(a, l_out, inv_out, m, p, ctas, \
+                                            s)                            \
+             : invalid
+    if (p <= 32) SLAM_CHOL(2, 16);
+    if (p <= 64) SLAM_CHOL(4, 16);
+    if (p <= 128) {
+      if constexpr (sizeof(T) == 4) {
+        SLAM_CHOL(8, 16);
+      } else {
+        SLAM_CHOL(8, 8);
+      }
     }
-  }
-  if (p <= kR * MaxTile<T>::value) SLAM_CHOL(MaxTile<T>::value, 8);
+    if (p <= kR * MaxTile<T>::value) SLAM_CHOL(MaxTile<T>::value, 8);
 #undef SLAM_CHOL
-  return static_cast<int>(cudaErrorInvalidValue);
+    return invalid;
+  }
+  if (p > 128 || threads != 256 || inverse_threads != 1024 ||
+      inverse_ctas < 1) {
+    return invalid;
+  }
+  const int err =
+      p <= 32   ? launch_chol<T, 2, 8, false>(a, l_out, inv_out, m, p, ctas, s)
+      : p <= 64 ? launch_chol<T, 4, 8, false>(a, l_out, inv_out, m, p, ctas, s)
+                : launch_chol<T, 8, 8, false>(a, l_out, inv_out, m, p, ctas,
+                                              s);
+  if (err != 0) return err;
+  if (p <= 32) return launch_inverse<T, 1, 32>(l_out, inv_out, m, p,
+                                                inverse_ctas, s);
+  if (p <= 64) return launch_inverse<T, 2, 32>(l_out, inv_out, m, p,
+                                                inverse_ctas, s);
+  return launch_inverse<T, 4, 32>(l_out, inv_out, m, p, inverse_ctas, s);
 }
 
 }  // namespace slam
@@ -358,13 +536,21 @@ int micro_chol_inv(const void* a, void* l_out, void* inv_out, int64_t m,
 extern "C" {
 
 int slam_micro_chol_inv_f32(const void* a, void* l_out, void* inv_out,
-                            int64_t m, int64_t p, void* stream) {
-  return slam::micro_chol_inv<float>(a, l_out, inv_out, m, p, stream);
+                            int64_t m, int64_t p, int ctas, int threads,
+                            int split, int inverse_ctas, int inverse_threads,
+                            void* stream) {
+  return slam::micro_chol_inv<float>(a, l_out, inv_out, m, p, ctas, threads,
+                                     split, inverse_ctas, inverse_threads,
+                                     stream);
 }
 
 int slam_micro_chol_inv_f64(const void* a, void* l_out, void* inv_out,
-                            int64_t m, int64_t p, void* stream) {
-  return slam::micro_chol_inv<double>(a, l_out, inv_out, m, p, stream);
+                            int64_t m, int64_t p, int ctas, int threads,
+                            int split, int inverse_ctas, int inverse_threads,
+                            void* stream) {
+  return slam::micro_chol_inv<double>(a, l_out, inv_out, m, p, ctas, threads,
+                                      split, inverse_ctas, inverse_threads,
+                                      stream);
 }
 
 }  // extern "C"

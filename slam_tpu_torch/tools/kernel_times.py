@@ -194,8 +194,9 @@ def host_us(fn, reps: int = 50) -> float:
     return t / reps * 1e6
 
 
-def device_ms(fn, reps: int = 50) -> tuple[float, float]:
-    """(device ms per call, device events per call) under torch.profiler."""
+def device_kernels(fn, reps: int = 50) -> dict:
+    """``{kernel: (device ms per call, events per call)}`` of the call's
+    device events under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from slam_tpu_torch.tools.profile_lm import device_us
@@ -207,9 +208,14 @@ def device_ms(fn, reps: int = 50) -> tuple[float, float]:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if device_us(e) > 0]
-    return (sum(device_us(e) for e in evs) / 1e3 / reps,
-            sum(e.count for e in evs) / reps)
+    return {e.key: (device_us(e) / 1e3 / reps, e.count / reps)
+            for e in prof.key_averages() if device_us(e) > 0}
+
+
+def device_ms(fn, reps: int = 50) -> tuple[float, float]:
+    """(device ms per call, device events per call) under torch.profiler."""
+    kernels = device_kernels(fn, reps).values()
+    return (sum(ms for ms, _ in kernels), sum(n for _, n in kernels))
 
 
 def times(fn, library, reps: int) -> dict:
@@ -221,11 +227,14 @@ def times(fn, library, reps: int) -> dict:
 
 
 def add_device_times(rows: list, fns: list, reps: int) -> None:
-    """``device_ms`` and ``device_events`` of ``fns[i]`` into ``rows[i]``,
-    under torch.profiler: call this after every other timing of the
-    process."""
+    """``device_ms``, ``device_events`` and ``device_kernels`` (ms a call
+    by kernel) of ``fns[i]`` into ``rows[i]``, under torch.profiler: call
+    this after every other timing of the process."""
     for row, fn in zip(rows, fns):
-        row["device_ms"], row["device_events"] = device_ms(fn, reps)
+        kernels = device_kernels(fn, reps)
+        row["device_kernels"] = {k: ms for k, (ms, _) in kernels.items()}
+        row["device_ms"] = sum(row["device_kernels"].values())
+        row["device_events"] = sum(n for _, n in kernels.values())
 
 
 # ---------------------------------------------------------------------------

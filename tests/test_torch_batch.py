@@ -284,7 +284,7 @@ def test_f32_fold_matches_jax_folded_interpret(graphs):
                                atol=F32_POSE_ATOL)
 
 
-@pytest.mark.parametrize("lead", [(3,), (2, 3)])
+@pytest.mark.parametrize("lead", [(3,), (2, 3), (6,), (8,)])
 def test_micro_chol_inv_folded_matches_the_jax_fold(lead):
     """``micro_chol_inv_folded`` of ``(*lead, M, p, p)`` against the JAX
     folded interpret kernel under vmap, and against one call per leading

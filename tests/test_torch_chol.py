@@ -259,9 +259,8 @@ def test_lm_fixed_iters_blocked_micro_float32():
 
 def test_max_panel_by_launch_shape():
     """``max_panel`` per dtype is the largest ``p`` whose tile and vector,
-    ``p (p + 2)`` elements, fit the shared memory a block may opt into; the
-    kernel picks its launch shape itself, and the wrapper raises beyond
-    that ``p`` before any launch."""
+    ``p (p + 2)`` elements, fit the shared memory a block may opt into;
+    the wrapper raises beyond that ``p`` before any launch."""
     for dtype, want in ((torch.float32, 240), (torch.float64, 169)):
         p, size = tchol.max_panel(dtype), torch.finfo(dtype).bits // 8
         assert p == want
@@ -274,6 +273,93 @@ def test_max_panel_by_launch_shape():
         with pytest.raises(ValueError):
             tchol.micro_chol_inv(torch.empty(shape, dtype=dtype,
                                              device="meta"))
+    assert tchol.micro_chol_inv.launches == before
+
+
+# The H100's SM count, on which the schedule's regimes are stated.
+SMS = 132
+
+
+def _parent_shape(m, p, dtype):
+    """(CTAs a matrix, threads) that ``csrc/chol.cu`` chose itself for its
+    one launch before the schedule moved to Python."""
+    ctas = 4 if 4 * m <= SMS else (2 if 2 * m <= SMS else 1)
+    tile = 128 if dtype == torch.float32 else 64
+    return ctas, 512 if p <= tile else 256
+
+
+def _pairs_walked(ctas, warps, p):
+    """Most column pairs one warp walks under the kernel's assignment: warp
+    w of slice s takes q = s + ctas w + ctas warps k for q < (p + 1) / 2."""
+    return max(len(range(s + ctas * w, (p + 1) // 2, ctas * warps))
+               for s in range(ctas) for w in range(warps))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,p", [(m, p) for m in (1, 16, 32, 33)
+                                 for p in (1, 2, 31, 64, 100, 128, "max")]
+                         + [(96, 129), (128, "max")])
+def test_schedule_keeps_the_parent_shape_while_four_ctas_fit(m, p, dtype):
+    """While 4 m <= SMs, and at any m for p above the split's largest,
+    the schedule is the parent's single launch, pairs per warp as
+    walked."""
+    if p == "max":
+        p = tchol.max_panel(dtype)
+    s = tchol.schedule(m, p, dtype, SMS)
+    ctas, threads = _parent_shape(m, p, dtype)
+    assert s == (False, ctas, threads, ctas, threads,
+                 _pairs_walked(ctas, threads // 32, p))
+    assert s.kernels == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [34, 48, 66, 67, 96, 128])
+def test_schedule_splits_the_folded_batches(m, dtype):
+    """Past 4 m > SMs at p = 128: the factor on one 256-thread CTA a
+    matrix, the inverse on 1024-thread CTAs; each launch one CTA a SM in
+    one wave, and no warp walks more than two pairs (the parent's single
+    launch: 4 in float32, 8 in float64 at 96 and 128 panels)."""
+    p = 128
+    s = tchol.schedule(m, p, dtype, SMS)
+    assert s.split and s.kernels == 2
+    assert (s.ctas, s.threads, s.inverse_threads) == (1, 256, 1024)
+    assert m * s.ctas <= SMS and m * s.inverse_ctas <= SMS
+    walked = _pairs_walked(s.inverse_ctas, s.inverse_threads // 32, p)
+    assert walked == s.pairs_per_warp == (1 if 2 * m <= SMS else 2)
+    ctas, threads = _parent_shape(m, p, dtype)
+    parent = _pairs_walked(ctas, threads // 32, p)
+    assert parent == {torch.float32: 2 if 2 * m <= SMS else 4,
+                      torch.float64: 4 if 2 * m <= SMS else 8}[dtype]
+    assert walked < parent
+
+
+def test_cuda_path_launches_the_schedule_or_raises(monkeypatch):
+    """A non-CPU tensor never takes the plain version: the C entry gets
+    the schedule's shape, and a refused launch raises without counting."""
+    calls = []
+
+    def refused(*args):
+        calls.append(args)
+        return 1  # cudaErrorInvalidValue
+
+    def plain(A):
+        raise AssertionError("the plain version on a non-CPU tensor")
+
+    monkeypatch.setattr(tchol._build, "entry", lambda base, dtype: refused)
+    monkeypatch.setattr(tchol._build, "stream_ptr", lambda index: 0)
+    monkeypatch.setattr(tchol, "sm_count", lambda index: SMS)
+    monkeypatch.setattr(tchol, "micro_chol_inv_plain", plain)
+    before = tchol.micro_chol_inv.launches
+    for shape, dtype in (((8, 16, 128, 128), torch.float32),
+                         ((6, 16, 128, 128), torch.float64),
+                         ((16, 128, 128), torch.float32)):
+        with pytest.raises(RuntimeError):
+            tchol.micro_chol_inv_folded(torch.empty(shape, dtype=dtype,
+                                                    device="meta"))
+        m = int(np.prod(shape[:-2]))
+        s = tchol.schedule(m, 128, dtype, SMS)
+        assert calls[-1][3:-1] == (m, 128, s.ctas, s.threads, int(s.split),
+                                   s.inverse_ctas, s.inverse_threads)
     assert tchol.micro_chol_inv.launches == before
 
 
