@@ -64,6 +64,13 @@ the script exits non-zero and prints no result line):
      of that chain batch, and of the INTEL+50 seed batch of seeds 0-7, on
      PCG (3 CG iterations) and on the Woodbury solver, recorded and
      replayed as above;
+   - the joint-SC seed batch of phase 6i: one batched iteration on the
+     Schur solver (native; in float32 also blocked, with the kernel) and
+     on the dense joint solver (eight 5220 x 5220 systems) recorded and
+     replayed as above, the fused linearisation not launched; and
+     ``micro_chol_inv_folded`` on the real first and trailing panels of
+     its interiors with the switches eliminated, after
+     ``SC_PANEL_ITERS`` iterations, folded over its 8 seeds;
 3. the main path through the CLI, ``INTEL 50 1 --seed 42`` (auto init,
    auto solver = Schur, rescue on, float32): the output files, the launch
    count of every kernel during that run, and the ATE against the golden
@@ -150,6 +157,26 @@ the script exits non-zero and prints no result line):
    as 6g (b) on ``scripts/bench_woodbury.py``'s batch (each seed's
    low-rank edges padded to the seeds' largest count), its gate printed,
    not raised (the float32 correction cancels; (a) holds it in float64);
+6i. ``sc_batch``: joint switchable constraints (method 2) in the seed
+   batch (``tools/problems.intel50_seed_batch(..., "sc")``: INTEL+50 of
+   seeds 0-7) on the Schur solver (native and blocked with the kernel),
+   the dense joint solver, Woodbury and PCG (rtol 1e-8, 250 CG
+   iterations, ``SC_PCG_ITERS`` LM iterations): (a) float64, each seed
+   of the batch held to its run alone over ``SC_BATCH_F64_ITERS``
+   iterations at the seed batch's float64 gates, switches included,
+   accepted steps and CG iterations equal; (b) float32, the same after
+   one iteration at the first-iteration gates (the blocked-kernel run at
+   ``SC_BATCH_STEP_TOL``), and the launches of a batched iteration equal
+   to one seed's (``micro_chol_inv`` on the blocked-kernel run,
+   ``fused_linearize_se2`` on none: joint SC takes the plain
+   linearisation); (c) float32: every seed meets ``bench.py``'s gate and
+   lands within ``SC_BATCH_F32_RTOL`` of its float64 batch cost, PCG at
+   most ``PCG_LAUNCH_LIMIT`` gathers and scatters an iteration of the CG
+   loop; the
+   batch's wall, LM it/s and peak allocated memory against the seeds
+   alone (PCG: ``LANE_ALONE_SEEDS``) in turns (batch, seeds, seeds,
+   batch), and (with the kernels' times) device ms and busy share per
+   batched iteration of Schur native and dense;
 7. method 2 (switchable constraints), float32:
    (a) ``method2_path``: ``INTEL 50 2 --seed 42`` through the CLI (auto
    solver = Schur with the switches eliminated), and again with
@@ -536,6 +563,56 @@ PCG_PROFILE_CG = 16
 # its own call ([fused_pcg] on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md);
 # the fold must read less.
 FUSED_PCG_LOOPED_READS = 28.25
+# [sc_batch]: joint switchable constraints (method 2) in the seed batch,
+# INTEL+50 x seeds 0-7 (tools/problems.intel50_seed_batch(..., "sc")), on
+# each configuration of tools/problems.SC_BATCH_CONFIGS.  In float64 each
+# seed of the batch against its run alone at the seed batch's float64
+# gates (poses and switches), over SC_BATCH_F64_ITERS iterations (PCG
+# capped: a seed's float64 LM iteration runs ~115 CG iterations at ~4 ms,
+# host-bound); in float32 after one iteration at its first-iteration
+# gates, but for SC_BATCH_STEP_TOL.  The float64 batch at the float32
+# run's iterations is the float32 gate's reference (the blocked-kernel
+# run's is native's; PCG's is SC_BATCH_PCG_F64).
+SC_BATCH_F64_ITERS = {"native": 50, "blocked_micro": 50, "dense": 50,
+                      "woodbury": 50, "pcg": 2}
+# The blocked-kernel batch's first float32 iteration against each seed
+# alone, (cost rel, poses m): measured on an NVIDIA H100 80GB HBM3 at
+# 700 W up to 7.6e-6 and 3.5e-4 m (the blocked factor's batched matmuls
+# pick another cuBLAS kernel at 8 x 16 interiors than at 16, and the
+# eliminated system's interiors carry it further than DCS's 4.5e-5 m);
+# the gates are about 4x that.  Its float64 run holds the lanes to their
+# seeds at the float64 gates.
+SC_BATCH_STEP_TOL = {"blocked_micro": (3e-5, 1.4e-3)}
+# Phase 2 takes the joint-SC batch's real panels after this many batched
+# iterations (native Schur, its dtype).
+SC_PANEL_ITERS = 5
+# Each seed's float32 cost after tools/problems.BATCH_ITERS iterations
+# (PCG: SC_PCG_ITERS) against its float64 batch cost, per configuration:
+# twice the largest |relative difference| on the card over the float32
+# batch from the initial poses and 16 copies perturbed by 1e-7 (python -m
+# slam_tpu_torch.tools.f32_spread --robust sc --problem seed_batch
+# --perturb 16, NVIDIA H100 80GB HBM3, 700 W; each seed alone lands
+# inside); the largest in the comment.
+SC_BATCH_F32_RTOL = {
+    "native": 0.048,         # 0.02363
+    "blocked_micro": 0.032,  # 0.01593
+    "dense": 0.039,          # 0.01919
+    "woodbury": 0.080,       # 0.03999
+    "pcg": 0.016,            # 0.00777
+}
+# The float64 PCG batch's costs after SC_PCG_ITERS iterations, the float32
+# PCG gate's reference: the same f32_spread run's (its float64_pcg; the
+# phase's own float64 batch gave the same digits), taken as constants
+# since the run takes ~8 s of host-bound CG iterations.
+SC_BATCH_PCG_F64 = [4.209143379901397, 3.414422106338442,
+                    3.6736337778426167, 5.413528912856409,
+                    3.457790469237093, 4.716206563900505,
+                    4.029175713024489, 4.407989074659244]
+# LM it/s of the float32 batch against the eight seeds alone, in turns,
+# over SC_BATCH_TIMED_ITERS iterations; PCG against LANE_ALONE_SEEDS
+# seeds over SC_PCG_TIMED_ITERS.
+SC_BATCH_TIMED_ITERS = 10
+SC_PCG_TIMED_ITERS = 2
 KERNEL_INFO = {  # name: (source, TPU kernel it replaces, phase that runs it)
     "gather_rows": ("slam_tpu_torch/csrc/gather.cu",
                     "slam_tpu/ops/pallas_gather.py:56", "main_path"),
@@ -575,6 +652,12 @@ PHASE_KERNELS = {
                                  "fused_linearize_se2", "micro_chol_inv"),
     "rescue_batch": ("gather_rows", "scatter_add_rows",
                      "fused_linearize_se2"),
+    # Joint SC takes the plain linearisation, as alone: no
+    # fused_linearize_se2 (sc_batch checks that it is not launched).
+    **{f"sc_batch_{name}": ("gather_rows", "scatter_add_rows")
+       for name in ("native", "dense", "woodbury", "pcg")},
+    "sc_batch_blocked_micro": ("gather_rows", "scatter_add_rows",
+                               "micro_chol_inv"),
     "rescue_batch_dense": ("gather_rows", "scatter_add_rows",
                            "fused_linearize_se2"),
     **{phase: ("gather_rows", "scatter_add_rows", "fused_linearize_se2")
@@ -629,22 +712,28 @@ def require_launches(phase: str, counts: dict) -> None:
                              f"{missing}")
 
 
-def real_panels(edges, free, poses, part) -> dict:
+def real_panels(edges, free, poses, part, robust: str = "dcs",
+                switches=None) -> dict:
     """The first and the trailing diagonal panel that the blocked
     factorisation of the equilibrated interiors hands to the panel factor
-    at ``poses`` and lambda = 1e-4."""
+    at ``poses`` and lambda = 1e-4; under joint SC (``robust="sc"``, at
+    ``switches``) those of the system with the switches eliminated, as
+    the Schur solver gets it."""
     from slam_tpu_torch.solver import blocked_chol as bc
+    from slam_tpu_torch.solver.linear import eliminate_switches
     from slam_tpu_torch.solver.linearize import linearize
     from slam_tpu_torch.solver.models import model_for_dim
     from slam_tpu_torch.solver.schur import assemble
 
     sw = torch.ones((edges.num_edges,), dtype=poses.dtype,
-                    device=poses.device)
+                    device=poses.device) if switches is None else switches
+    lam = torch.tensor(1e-4, dtype=poses.dtype, device=poses.device)
     system = linearize(poses, sw, edges, free,
-                       model=model_for_dim(poses.shape[-1]), robust="dcs",
+                       model=model_for_dim(poses.shape[-1]), robust=robust,
                        dcs_phi=0.5, huber_delta=0.01, sc_prior_lambda=1.0)
-    A = assemble(system, part, torch.tensor(1e-4, dtype=poses.dtype,
-                                            device=poses.device)).A
+    if robust == "sc":  # every problem at the same lambda
+        system, _ = eliminate_switches(system, edges, lam)
+    A = assemble(system, part, lam).A
     P, n, _ = A.shape
     fac = bc.blocked_cholesky(A, panel=PANEL)
     n_pad = fac.L.shape[-1]
@@ -1168,6 +1257,7 @@ def phase_kernels(device, peaks, timings: list) -> dict:
                 launches_per_run=json.dumps(counts))
 
         chains = check_chain_batches(device, dtype)
+        check_sc_batch(device, dtype)
         check_manager_shapes(device, dtype, manager_graphs, fused_graphs)
         check_phase11_shapes(device, dtype)
 
@@ -1280,6 +1370,67 @@ def check_chain_batches(device, dtype):
                        dtype)
     check_lane_batches(device, dtype, schur.masks)
     return schur
+
+
+@functools.lru_cache(maxsize=None)
+def sc_case(device, solver: str, dtype):
+    """The joint-SC seed batch on ``solver`` (a ``problems.BatchCase``)."""
+    from slam_tpu_torch.tools.problems import intel50_seed_batch
+
+    return intel50_seed_batch(device, dtype, solver, "sc")
+
+
+def check_sc_batch(device, dtype) -> None:
+    """Phase 2 on the joint-SC seed batch of [sc_batch]: one batched
+    iteration on the Schur solver (native; in float32 also blocked with
+    the kernel) and on the dense joint solver, every gather and scatter
+    launch replayed through :func:`check_launches`, the fused
+    linearisation not launched (joint SC takes the plain chain); and
+    ``micro_chol_inv_folded`` on the batch's real first and trailing
+    panels of the system with the switches eliminated (8 seeds x 16
+    interiors, folded over the seeds), after ``SC_PANEL_ITERS`` batched
+    iterations: at the start no bogus loop lies inside an interior and
+    every switch is 1, so the panels are the DCS seed batch's."""
+    from slam_tpu_torch.solver.batch import lm_fixed_iters_batch
+    from slam_tpu_torch.tools import kernel_times as kt
+    from slam_tpu_torch.tools.problems import SC_BATCH_CONFIGS
+
+    name = str(dtype).replace("torch.", "")
+    kinds = ["native", "dense"] + (["blocked_micro"]
+                                   if dtype == torch.float32 else [])
+    for kind in kinds:
+        solver, kw = SC_BATCH_CONFIGS[kind]
+        c = sc_case(device, solver, dtype)
+        b = c.batch
+        args = (b.poses0.reshape(-1, b.poses0.shape[-1]),
+                b.switches0.reshape(-1), b.edges, b.free)
+        calls, counts, _ = kt.record_iteration(args, c.cfg.replace(**kw),
+                                               c.plan)
+        label = f"INTEL-sc-seeds-{kind}"
+        required = PHASE_KERNELS[f"sc_batch_{kind}"]
+        if any(counts.get(k, 0) <= 0 for k in required) or counts.get(
+                "fused_linearize_se2", 0):
+            raise AssertionError(f"{label} {name}: launches {counts}, "
+                                 f"required {required}, no "
+                                 "fused_linearize_se2")
+        log("kernels", shape=label, dtype=name, lanes=b.seeds,
+            edges=b.edges.num_edges, nodes=b.edges.num_nodes,
+            checked_calls=len(calls),
+            scatter_max_abs_err=check_launches(calls, label, name),
+            launches_per_run=json.dumps(counts))
+    c = sc_case(device, "schur", dtype)
+    b = c.batch
+    res = lm_fixed_iters_batch(*b.args, c.cfg, SC_PANEL_ITERS,
+                               partition=c.plan)
+    panels = real_panels(b.edges, b.free,
+                         res.poses.reshape(-1, b.poses0.shape[-1]), c.plan,
+                         robust="sc", switches=res.switches.reshape(-1))
+    log("kernels", panels="sc-seed-batch", dtype=name, lanes=b.seeds,
+        iters=SC_PANEL_ITERS, blocks=c.plan.num_blocks,
+        interior_dim=panels["n"], padded=panels["n_pad"])
+    for which in ("first", "trailing"):
+        check_chol(f"sc-seed-batch-{which}", panels[which], name,
+                   "residual", lead=(b.seeds,))
 
 
 def check_lane_batches(device, dtype, masks) -> None:
@@ -1570,8 +1721,9 @@ def phase_blocked(device, smi: str) -> dict:
 
 def timed_batch(case, cfg, iters: int) -> tuple:
     """(result, wall seconds, launch counts, costs, peak bytes) of
-    ``iters`` batched iterations in one call; the peak counts the bytes
-    allocated above those held when the run starts."""
+    ``iters`` batched iterations of ``case`` (a ``problems.BatchCase``)
+    on its plan in one call; the peak counts the bytes allocated above
+    those held when the run starts."""
     from slam_tpu_torch import ops
     from slam_tpu_torch.solver.batch import lm_fixed_iters_batch
 
@@ -1581,7 +1733,7 @@ def timed_batch(case, cfg, iters: int) -> tuple:
     held = torch.cuda.memory_allocated()
     ops.reset_launches()
     t0 = time.perf_counter()
-    res = lm_fixed_iters_batch(*b.args, cfg, iters, partition=b.partition)
+    res = lm_fixed_iters_batch(*b.args, cfg, iters, partition=case.plan)
     costs = res.cost.tolist()  # synchronises
     return (res, time.perf_counter() - t0, ops.launch_counts(), costs,
             torch.cuda.max_memory_allocated() - held)
@@ -1653,17 +1805,10 @@ def phase_seed_batch(device, smi: str, timings: list) -> dict:
                 SEED_BATCH_F64_POSE_ATOL)
                for name in ("native", "blocked_plain")]
     for c, name, n, rtol, atol in checks:
-        cfg = c.cfg.replace(**CONFIGS[name])
-        res = lm_fixed_iters_batch(*c.batch.args, cfg, n,
-                                   partition=c.batch.partition)
+        res, rel, dp, _, _ = lanes_alone(c, c.cfg.replace(**CONFIGS[name]),
+                                         n)
         if c is case64 and name == "native":
             ref64 = res.cost.tolist()
-        rel, dp = [], []
-        for i, (args, p) in enumerate(c.alone):
-            r = lm_fixed_iters(*args, cfg, n, partition=p)
-            rel.append(abs(float(res.cost[i]) - float(r.cost))
-                       / abs(float(r.cost)))
-            dp.append(float((res.poses[i] - r.poses).abs().max()))
         dtype = str(c.batch.poses0.dtype).replace("torch.", "")
         log("seed_batch", held=name, dtype=dtype, iters=n,
             rel_diff=json.dumps(rel), pose_diff_m=json.dumps(dp),
@@ -2206,6 +2351,209 @@ def phase_woodbury_batch(device, smi: str, timings: list) -> dict:
                 device, smi, None),
             "woodbury_batch_seeds": seed_lanes("woodbury_batch", "woodbury",
                                                device, smi, timings)}
+
+
+def lanes_alone(c, cfg, iters: int) -> tuple:
+    """The batch of ``c`` (a ``problems.BatchCase``) and each of its seeds
+    alone, ``iters`` iterations each: (the batch's result, per seed its
+    relative cost difference, largest pose and switch differences and
+    whether its accepted steps and CG iterations are equal)."""
+    from slam_tpu_torch.solver.batch import lm_fixed_iters_batch
+    from slam_tpu_torch.solver.lm import lm_fixed_iters
+
+    res = lm_fixed_iters_batch(*c.batch.args, cfg, iters, partition=c.plan)
+    rel, dp, ds, acc = [], [], [], []
+    for i, (args, p) in enumerate(c.alone):
+        r = lm_fixed_iters(*args, cfg, iters, partition=p)
+        rel.append(abs(float(res.cost[i]) - float(r.cost))
+                   / abs(float(r.cost)))
+        dp.append(float((res.poses[i] - r.poses).abs().max()))
+        ds.append(float((res.switches[i] - r.switches).abs().max()))
+        acc.append([int(res.accepted[i]), int(res.lin_iters[i])]
+                   == [int(r.accepted), int(r.lin_iters)])
+    return res, rel, dp, ds, acc
+
+
+def phase_sc_batch(device, smi: str, timings: list) -> dict:
+    """Phase 6i: joint switchable constraints (method 2) in the seed
+    batch, on each configuration of ``problems.SC_BATCH_CONFIGS``.  (a)
+    float64: each seed of the batch against its run alone (cost, poses,
+    switches, accepted steps and CG iterations) over
+    ``SC_BATCH_F64_ITERS`` iterations; (b) float32: the same after one
+    iteration (``SC_BATCH_STEP_TOL``), and the launches of a
+    batched iteration against one seed's (B5 on the blocked-kernel run,
+    B3 on none); (c) float32: each seed's cost after the batch's
+    iterations against ``bench.py``'s gate and its float64 batch cost
+    (PCG: its launches per iteration of the CG loop too), and the batch's
+    wall, LM it/s and peak allocated memory against the
+    seeds alone, in turns (batch, seeds, seeds, batch); the device ms and
+    busy share of a batched iteration (Schur native, dense) appended to
+    ``timings``.  Returns each configuration's float32 batch launch
+    counts."""
+    from slam_tpu_torch.solver.batch import lm_fixed_iters_batch
+    from slam_tpu_torch.solver.lm import lm_fixed_iters
+    from slam_tpu_torch.tools.problems import BATCH_ITERS, \
+        SC_BATCH_CONFIGS, SC_PCG_ITERS
+
+    t0 = time.perf_counter()
+    dtypes = (torch.float32, torch.float64)
+    cases = {(solver, dt): sc_case(device, solver, dt)
+             for solver, _ in SC_BATCH_CONFIGS.values() for dt in dtypes}
+    b = cases["schur", torch.float32].batch
+    B = b.seeds
+    log("sc_batch", seeds=B, nodes=b.poses0.shape[1],
+        edges_per_seed=b.switches0.shape[1],
+        pad_shapes=json.dumps(list(b.pad_shapes)),
+        dense_unknowns_per_seed=3 * b.poses0.shape[1] + b.switches0.shape[1],
+        setup_s=round(time.perf_counter() - t0, 3))
+
+    def setup(name, dtype):
+        solver, kw = SC_BATCH_CONFIGS[name]
+        c = cases[solver, dtype]
+        return c, c.cfg.replace(**kw)
+
+    def iters_of(name):
+        return SC_PCG_ITERS if name == "pcg" else BATCH_ITERS
+
+    # (a) float64: each seed against its run alone; the float64 batch
+    # cost, the float32 gate's reference.
+    ref64 = {}
+    for name, n in SC_BATCH_F64_ITERS.items():
+        t1 = time.perf_counter()
+        c, cfg = setup(name, torch.float64)
+        res, rel, dp, ds, acc = lanes_alone(c, cfg, n)
+        ref64[name] = SC_BATCH_PCG_F64 if name == "pcg" else \
+            res.cost.tolist()  # after BATCH_ITERS, as the float32 run
+        log("sc_batch", part="a", config=name, dtype="float64", iters=n,
+            rel_diff=json.dumps(rel), pose_diff_m=json.dumps(dp),
+            switch_diff=json.dumps(ds), counts_equal=json.dumps(acc),
+            accepted=json.dumps(res.accepted.tolist()),
+            cg_iterations=json.dumps(res.lin_iters.tolist()),
+            costs=json.dumps(res.cost.tolist()),
+            f64_costs_at_f32_iters=json.dumps(ref64[name]),
+            gate_rel=SEED_BATCH_F64_RTOL, gate_m=SEED_BATCH_F64_POSE_ATOL,
+            s=round(time.perf_counter() - t1, 3))
+        if not (all(acc) and max(rel) <= SEED_BATCH_F64_RTOL
+                and max(dp + ds) <= SEED_BATCH_F64_POSE_ATOL):
+            raise AssertionError(f"sc_batch {name} float64: batch vs alone "
+                                 f"rel {max(rel)}, poses {max(dp)}, "
+                                 f"switches {max(ds)}, counts equal {acc}")
+    ref64["blocked_micro"] = ref64["native"]  # as f32_spread measures it
+
+    # (b) float32: one iteration against the seeds alone; the launches of
+    # a batched iteration against one seed's (PCG: every CG run to
+    # PCG_FIXED_CG iterations).
+    for name in SC_BATCH_CONFIGS:
+        t1 = time.perf_counter()
+        c, cfg = setup(name, torch.float32)
+        rtol, atol = SC_BATCH_STEP_TOL.get(
+            name, (SEED_BATCH_STEP_RTOL, SEED_BATCH_STEP_POSE_ATOL))
+        res, rel, dp, ds, acc = lanes_alone(c, cfg, 1)
+        fixed = cfg.replace(pcg_rtol=0.0, pcg_max_iters=PCG_FIXED_CG) \
+            if name == "pcg" else cfg
+        (args, p) = c.alone[0]
+        per_batch = iteration_launches(lambda k: lm_fixed_iters_batch(
+            *c.batch.args, fixed, k, partition=c.plan))
+        per_seed = iteration_launches(lambda k: lm_fixed_iters(
+            *args, fixed, k, partition=p))
+        log("sc_batch", part="b", config=name, dtype="float32", iters=1,
+            rel_diff=json.dumps(rel), pose_diff_m=json.dumps(dp),
+            switch_diff=json.dumps(ds), counts_equal=json.dumps(acc),
+            gate_rel=rtol, gate_m=atol,
+            launches_per_batched_iter=json.dumps(per_batch),
+            launches_per_seed_iter=json.dumps(per_seed),
+            s=round(time.perf_counter() - t1, 3))
+        if not (all(acc) and max(rel) <= rtol and max(dp + ds) <= atol):
+            raise AssertionError(f"sc_batch {name} float32 step: rel "
+                                 f"{max(rel)}, poses {max(dp)}, switches "
+                                 f"{max(ds)}, counts equal {acc}")
+        if per_batch != per_seed or per_batch["fused_linearize_se2"] or (
+                name == "blocked_micro") != (per_batch["micro_chol_inv"]
+                                             > 0):
+            raise AssertionError(f"sc_batch {name}: launches per batched "
+                                 f"iteration {per_batch}, per seed "
+                                 f"{per_seed}")
+
+    # (c) float32: the gates, and the batch against the seeds alone.
+    out, walls_ms = {}, {}
+    for name in SC_BATCH_CONFIGS:
+        t1 = time.perf_counter()
+        c, cfg = setup(name, torch.float32)
+        pcg = name == "pcg"
+        timed = c._replace(alone=c.alone[:LANE_ALONE_SEEDS]) if pcg else c
+        n = SC_PCG_TIMED_ITERS if pcg else SC_BATCH_TIMED_ITERS
+        lm_fixed_iters_batch(*c.batch.args, cfg, 1, partition=c.plan)
+        for args, p in timed.alone:  # warm-up
+            lm_fixed_iters(*args, cfg, 1, partition=p)
+        cg = []
+        with cg_counts(cg):
+            res, wall, counts, costs, peak = timed_batch(c, cfg,
+                                                         iters_of(name))
+        runs = [timed_batch(timed, cfg, n), timed_alone(timed, cfg, n),
+                timed_alone(timed, cfg, n), timed_batch(timed, cfg, n)]
+        batch_wall = (runs[0][1] + runs[3][1]) / 2
+        alone_wall = (runs[1][1] + runs[2][1]) / 2
+        walls_ms[name] = batch_wall * 1e3 / n
+        costs0 = res.initial_cost.tolist()
+        rel64 = [abs(x - r) / abs(r) for x, r in zip(costs, ref64[name])]
+        extra = dict(cg_fields(cg, counts), cg_iterations_per_seed=json.dumps(
+            res.lin_iters.tolist())) if pcg else {}
+        log("sc_batch", part="c", config=name, dtype="float32",
+            iters=iters_of(name), costs=json.dumps(costs),
+            initial_costs=json.dumps(costs0),
+            accepted=json.dumps(res.accepted.tolist()),
+            f64_costs=json.dumps(ref64[name]), rel_to_f64=json.dumps(rel64),
+            gate_rel_to_f64=SC_BATCH_F32_RTOL[name], wall_s=round(wall, 4),
+            ms_per_batched_iter=wall * 1e3 / iters_of(name),
+            peak_bytes_batch=peak, timed_iters=n,
+            timed_seeds_alone=len(timed.alone),
+            batch_walls_s=json.dumps([round(runs[0][1], 4),
+                                      round(runs[3][1], 4)]),
+            alone_walls_s=json.dumps([round(runs[1][1], 4),
+                                      round(runs[2][1], 4)]),
+            lm_it_per_s=round(B * n / batch_wall, 2),
+            alone_lm_it_per_s=round(len(timed.alone) * n / alone_wall, 2),
+            timed_peak_bytes_batch=runs[0][4],
+            timed_peak_bytes_alone=runs[1][4],
+            launches_per_iter=json.dumps({k: v / iters_of(name)
+                                          for k, v in counts.items()}),
+            **extra, s=round(time.perf_counter() - t1, 3),
+            card=json.dumps(smi))
+        bad = [i for i, (x, x0) in enumerate(zip(costs, costs0))
+               if not (x0 > SEED_BATCH_COST0_MIN
+                       and x < SEED_BATCH_COST_FRAC * x0)]
+        if bad:
+            raise AssertionError(f"sc_batch {name}: seeds {bad} miss "
+                                 "bench.py's gate")
+        if max(rel64) > SC_BATCH_F32_RTOL[name]:
+            raise AssertionError(
+                f"sc_batch {name}: float32 cost {max(rel64)} from the "
+                f"float64 batch's, above {SC_BATCH_F32_RTOL[name]}")
+        if counts["fused_linearize_se2"]:
+            raise AssertionError(f"sc_batch {name}: fused_linearize_se2 "
+                                 "launched under joint SC")
+        over = {k: v for k, v in json.loads(extra.get(
+            "launches_per_loop_cg_iter", "{}")).items()
+            if k in ("gather_rows", "scatter_add_rows")
+            and v > PCG_LAUNCH_LIMIT}
+        if over:
+            raise AssertionError(f"sc_batch pcg: launches per iteration of "
+                                 f"the CG loop {over} above "
+                                 f"{PCG_LAUNCH_LIMIT}")
+        require_launches(f"sc_batch_{name}", counts)
+        out[f"sc_batch_{name}"] = counts
+
+    def device_times():  # profiled in the report, after every other time
+        for name in ("native", "dense"):
+            c, cfg = setup(name, torch.float32)
+            log("sc_batch", config=name, **batch_device_ms(
+                lambda k, c=c, cfg=cfg: lm_fixed_iters_batch(
+                    *c.batch.args, cfg, k, partition=c.plan),
+                walls_ms[name]), wall_ms_per_iter=walls_ms[name],
+                card=json.dumps(smi))
+
+    timings.append(lambda: ([], [], device_times))
+    return out
 
 
 def reference(key: str) -> dict:
@@ -3488,6 +3836,7 @@ def main() -> int:
         ("pcg_batch", lambda: phase_pcg_batch(device, smi, timings)),
         ("woodbury_batch", lambda: phase_woodbury_batch(device, smi,
                                                         timings)),
+        ("sc_batch", lambda: phase_sc_batch(device, smi, timings)),
         ("method2_path", lambda: phase_method2_path(smi)),
         ("method2_dense", lambda: phase_method2_dense(device, smi)),
         ("method2_ab", lambda: phase_method2_ab(device, smi)),
@@ -3519,7 +3868,8 @@ def main() -> int:
     launches = {"main_path": out["main_path"],
                 "blocked_path": out["blocked"], **out["seed_batch"],
                 **out["rescue_batch"], **out["pcg_batch"],
-                **out["woodbury_batch"], **out["method2_path"],
+                **out["woodbury_batch"], **out["sc_batch"],
+                **out["method2_path"],
                 "method2_dense": out["method2_dense"],
                 "method2_ab": out["method2_ab"], **out["pcg"],
                 "report_stages": out["report_stages"],

@@ -16,10 +16,10 @@ difference into its count).  Three parts, one JSON line per case:
   matmul, ``einsum``, elementwise product and sum) equals the same
   product of one problem's blocks alone.
 * ``dots``: the port's lane dots (``linear._dot(seeds=B)``: each lane's
-  own full reductions, 2B + 4 launches) against the form it replaced
-  (each lane's two sums added before the stack, 3B + 3) and one row
-  reduction of the ``(B, n)`` views for all lanes (5 launches, as one
-  problem's dot), at INTEL+50's size a lane (3684 pose and 1536 switch
+  own full reductions on aligned rows, 2B + 4 launches) against the form
+  it replaced (each lane's two sums added before the stack, 3B + 3) and
+  one row reduction of the ``(B, n)`` views for all lanes (5 launches,
+  as one problem's dot), at INTEL+50's size a lane (3684 pose and 1536 switch
   unknowns) and the widths of the rescue's round (6), the seed batch (8)
   and the managers' fold (10); in turns (exact, added, rows, rows,
   added, exact): ms a dot under CUDA events, device launches a dot under

@@ -30,7 +30,10 @@ Here stacking is concatenation:
   not the partition of the disjoint union, whose one separator of
   ``B*D*ns`` would cost B^2 times the factor work;
 - the dense plan (``linear.dense_plan(seeds=B)``) puts each problem's
-  pose-only system in its own matrix of a ``(B, D*N, D*N)`` stack;
+  pose-only system in its own matrix of a ``(B, D*N, D*N)`` stack, and
+  under joint switchable constraints (``switches=True``) its joint
+  pose-and-switch system, each switch placed by its index in its own
+  problem;
 - PCG's plan (``linear.PCGPlan(seeds=B)``) gives each problem its own CG
   scalars and stopping test; the cyclic-reduction preconditioner reduces
   each problem's chain on a lane axis (``solver/tridiag.py``);
@@ -53,8 +56,10 @@ interiors (``micro_chol_inv_folded``); on PCG one gather and one
 grouped scatter per CG matvec for all B problems, the loop running as
 long as its slowest problem.  A single problem's arithmetic is
 unchanged.  The batch takes the Schur, dense, PCG and Woodbury solvers
-with ``robust`` none, dcs or sc_varpro; joint SC raises, naming the
-``ROADMAP.md`` item that ports it.
+with every ``robust`` mode: under joint SC (``sc``) the Schur and Woodbury
+solvers eliminate each problem's switches with its own damping, the dense
+solver factors each problem's joint system, and PCG runs the joint system
+as alone.
 """
 
 from __future__ import annotations
@@ -74,12 +79,10 @@ from slam_tpu_torch.solver.problem import EdgeSet, FreeMask, \
 
 Tensor = torch.Tensor
 
-#: What the batch does not take, and the ROADMAP item that ports it.
-NOT_BATCHED = {
-    "sc": "A19d (joint switchable constraints in the batch)",
-}
-#: The plan type each linear solver's batch takes.
-PLANS = {"schur": schur.SchurPartition, "dense": linear.DenseBatchPlan,
+#: The plan types each linear solver's batch takes (the dense solver's
+#: pose-only or joint plan, as ``robust`` asks).
+PLANS = {"schur": schur.SchurPartition,
+         "dense": (linear.DenseBatchPlan, linear.JointPlan),
          "pcg": linear.PCGPlan, "woodbury": woodbury.WoodburyOps}
 
 
@@ -174,14 +177,17 @@ def seed_batch(graphs: Sequence[PoseGraph], num_blocks: int,
         pad_shapes=pad)
 
 
-def batch_plan(edges: EdgeSet, linear_solver: str, seeds: int):
+def batch_plan(edges: EdgeSet, linear_solver: str, seeds: int,
+               robust: str = "dcs"):
     """The plan of ``seeds`` problems of one size in ``edges`` (a seed
     batch's, or copies of one problem) for a solver other than Schur: the
-    dense batch plan, PCG's, or the Woodbury operators padded to the
-    problems' largest low-rank count (``scripts/bench_woodbury.py``'s
-    recipe; copies of one problem need no padding)."""
+    dense batch plan (the joint one for ``robust="sc"``), PCG's, or the
+    Woodbury operators padded to the problems' largest low-rank count
+    (``scripts/bench_woodbury.py``'s recipe; copies of one problem need
+    no padding)."""
     if linear_solver == "dense":
-        return linear.dense_plan(edges, seeds=seeds)
+        return linear.dense_plan(edges, switches=robust == "sc",
+                                 seeds=seeds)
     if linear_solver == "pcg":
         return linear.PCGPlan(seeds)
     if linear_solver == "woodbury":
@@ -272,7 +278,7 @@ def candidate_plan(edges: EdgeSet, cfg: SolverConfig, partition,
             stack_slots([partition.slots] * lanes),
             dtype=edges.meas.dtype, device=edges.meas.device, seeds=lanes)
     else:
-        plan = batch_plan(es, cfg.linear_solver, lanes)
+        plan = batch_plan(es, cfg.linear_solver, lanes, cfg.robust)
     return CandidatePlan(edges=es, partition=plan)
 
 
@@ -307,13 +313,8 @@ def lane(res: LMResult, k: int) -> LMResult:
 
 
 def _check_solver(cfg: SolverConfig) -> None:
-    """Raise for a solver or robust mode that the batch does not take."""
+    """Raise for a linear solver that the batch does not know."""
     require_type(cfg, SolverConfig, "cfg")
-    for what in (cfg.linear_solver, cfg.robust):
-        if what in NOT_BATCHED:
-            raise NotImplementedError(
-                f"the seed batch does not take {what!r} yet: ROADMAP "
-                f"{NOT_BATCHED[what]}")
     if cfg.linear_solver not in PLANS:
         raise ValueError(f"unknown linear solver {cfg.linear_solver!r}")
 
@@ -327,7 +328,7 @@ def _flat(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
         raise ValueError("the seed batch needs its stacked partition "
                          "(seed_batch(...).partition, "
                          "chain_batch(...).partition or "
-                         "batch_plan(edges, solver, seeds=B))")
+                         "batch_plan(edges, solver, B, robust))")
     B, N, dim = poses0.shape
     E = switches0.shape[-1]
     if partition.seeds != B or edges.num_nodes != B * N \

@@ -16,10 +16,12 @@ method 2's joint system (``robust="sc"``) and solve to 0 otherwise.
   stack (:func:`cholesky_each`: on the H100 B single calls took 0.24-0.76
   of the batched call's time at 3135^2 and 3684^2, B = 2-10; PERF.md), so
   each problem's factor is its own alone to the bit, as ``jax.vmap`` of
-  the JAX ``dense_solve`` factors each.
+  the JAX ``dense_solve`` factors each; so is each problem's joint
+  system under a :class:`JointPlan` with ``seeds``.
 - ``eliminate_switches``: the exact elimination of the diagonal switch
-  block, so that method 2 rides the pose-only Schur solver; its per-node
-  corrections are one grouped ``scatter_add_rows`` launch.
+  block, so that method 2 rides the pose-only Schur and Woodbury solvers
+  (B problems' too, each problem's switches damped by its own lambda);
+  its per-node corrections are one grouped ``scatter_add_rows`` launch.
 - ``pcg_solve``: preconditioned conjugate gradients on the joint system;
   each matvec is one ``gather_rows`` and one grouped ``scatter_add_rows``
   launch, and the stopping test is read on the host only every
@@ -63,15 +65,21 @@ def damped_blocks(system: BlockSystem, lam: Tensor) -> Tensor:
         lam * torch.clamp(d, _DIAG_MIN, _DIAG_MAX))
 
 
+def damped_switches(system: BlockSystem, lam: Tensor,
+                    seeds: int | None = None) -> Tensor:
+    """The damped switch diagonal ``Hss + lam * clip(Hss)``; for B problems
+    (``seeds``, ``lam`` per node) each problem's switches take its own
+    ``lam``."""
+    lam_s = lam if seeds is None else lane_rows(
+        lam.reshape(seeds, -1)[:, 0], system.Hss, seeds)
+    return system.Hss + lam_s * torch.clamp(system.Hss, _DIAG_MIN, _DIAG_MAX)
+
+
 def damped_diag(system: BlockSystem, lam: Tensor,
                 seeds: int | None = None) -> tuple[Tensor, Tensor]:
     """LM-damped diagonal blocks (:func:`damped_blocks`) and the damped
-    switch diagonal; for B problems (``seeds``, ``lam`` per node) each
-    problem's switches take its own ``lam``."""
-    lam_s = lam if seeds is None else lane_rows(
-        lam.reshape(seeds, -1)[:, 0], system.Hss, seeds)
-    Hss = system.Hss + lam_s * torch.clamp(system.Hss, _DIAG_MIN, _DIAG_MAX)
-    return damped_blocks(system, lam), Hss
+    switch diagonal (:func:`damped_switches`)."""
+    return damped_blocks(system, lam), damped_switches(system, lam, seeds)
 
 
 def lane_rows(v: Tensor, like: Tensor, seeds: int | None) -> Tensor:
@@ -107,10 +115,14 @@ class JointPlan(NamedTuple):
     """Dense assembly of the joint pose-and-switch system: ``plan`` places
     D x D blocks in an ``(n + m) x (n + m)`` block grid, ``m = ceil(E/D)``;
     switch ``e`` is unknown ``D*n + e``, row ``e % D`` (``row_sel``, a
-    one-hot (E, D)) of block row ``n + e // D``."""
+    one-hot (E, D)) of block row ``n + e // D``.  With ``seeds=B`` the
+    nodes and edges are B problems' (``n / B`` and ``E / B`` each), each
+    problem's grid its own of a ``(B, w, w)`` stack, and ``e`` is the
+    switch's index in its own problem."""
 
     plan: SegmentPlan
     row_sel: Tensor
+    seeds: int | None = None
 
 
 class DenseBatchPlan(NamedTuple):
@@ -131,21 +143,21 @@ def dense_plan(edges: EdgeSet, switches: bool = False,
     also places, per edge, its switch diagonal and its couplings to both
     endpoints (a self-loop's two couplings add).  ``seeds=B`` reads the
     edges as B problems of ``n / B`` nodes each, every edge inside one
-    (``solver/batch.py``), and returns a :class:`DenseBatchPlan`."""
+    (``solver/batch.py``), and returns a :class:`DenseBatchPlan`, or with
+    ``switches`` a :class:`JointPlan` of B problems of ``E / B`` edges,
+    problem k's at ``[k*E/B, (k+1)*E/B)``."""
     n, E, D = edges.num_nodes, edges.num_edges, edges.tangent_dim
     ij = edges.ij.cpu().numpy().astype(np.int64)
     a, b = ij[:, 0], ij[:, 1]
     nodes = np.arange(n)
     dev = edges.ij.device
     if seeds is not None:
-        if switches:
-            raise NotImplementedError(
-                "the batch does not take the joint dense plan yet: ROADMAP "
-                "A19d (joint switchable constraints in the batch)")
         m = n // seeds
         if m * seeds != n or np.any(a // m != b // m):
             raise ValueError(f"{E} edges over {n} nodes are not {seeds} "
                              "problems of the same size")
+        if switches:
+            return _joint_batch_plan(edges, a, b, seeds)
         # Node g = lane * m + row lands at (lane * m + row) * m + g % m.
         idx = np.concatenate([nodes * m + nodes % m, a * m + b % m,
                               b * m + a % m])
@@ -163,6 +175,35 @@ def dense_plan(edges: EdgeSet, switches: bool = False,
                         device=dev)[torch.arange(E, device=dev) % D]
     return JointPlan(segment_plan(idx, w * w, device=dev, grid=((), w, w)),
                      row_sel)
+
+
+def _joint_batch_plan(edges: EdgeSet, a: np.ndarray, b: np.ndarray,
+                      seeds: int) -> JointPlan:
+    """:func:`dense_plan`'s joint plan of ``seeds`` problems: each
+    problem's ``w x w`` block grid, ``w = m + ceil(Eb / D)`` (``m`` nodes
+    and ``Eb`` edges a problem), is its own of a ``(B, w, w)`` stack, and
+    each block lands where the problem's own :class:`JointPlan` puts it
+    (segment ``(lane * w + row) * w + col``)."""
+    n, E, D = edges.num_nodes, edges.num_edges, edges.tangent_dim
+    m, Eb = n // seeds, E // seeds
+    lane_e, e = np.divmod(np.arange(E), Eb)
+    if Eb * seeds != E or np.any(a // m != lane_e):
+        raise ValueError(f"{E} edges are not {seeds} problems' blocks of "
+                         "the same size, each over its own nodes")
+    w = m + -(-Eb // D)
+    nodes = np.arange(n)
+    ca, cb, cs = a % m, b % m, m + e // D  # columns inside a lane's grid
+    ra, rb = (a // m) * w + ca, (b // m) * w + cb
+    rs = lane_e * w + cs                   # rows of the (B*w, w) stack
+    idx = np.concatenate([((nodes // m) * w + nodes % m) * w + nodes % m,
+                          ra * w + cb, rb * w + ca, rs * w + cs,
+                          rs * w + ca, ra * w + cs, rs * w + cb,
+                          rb * w + cs])
+    dev = edges.ij.device
+    row_sel = torch.eye(D, dtype=edges.meas.dtype, device=dev)[
+        torch.as_tensor(e % D, device=dev)]
+    return JointPlan(segment_plan(idx, seeds * w * w, device=dev,
+                                  grid=((seeds,), w, w)), row_sel, seeds)
 
 
 def cholesky_each(Hs: Tensor) -> tuple[Tensor, Tensor]:
@@ -204,7 +245,7 @@ def _finish_dense(H: Tensor, rhs: Tensor, n: int, D: int, E: int,
         y = cho_solve_stack(L, b)
     sol = nan_unless_factored(y[..., 0] * dscale, info,
                               H.shape[0] if H.dim() == 3 else None)
-    ds = sol[D * n:] if switches else torch.zeros(
+    ds = sol[..., D * n:].reshape(-1) if switches else torch.zeros(
         (E,), dtype=sol.dtype, device=sol.device)
     return Update(poses=sol[..., :D * n].reshape(-1, D), switches=ds)
 
@@ -214,25 +255,28 @@ def dense_solve(system: BlockSystem, edges: EdgeSet, lam: Tensor,
     """Exact damped solve through the dense Jacobi-equilibrated Cholesky:
     pose unknowns under a :class:`SegmentPlan`, the joint system with one
     switch unknown per edge under a :class:`JointPlan`, B problems' pose
-    unknowns under a :class:`DenseBatchPlan` (``lam`` then per node)."""
+    unknowns under a :class:`DenseBatchPlan` or their joint systems under
+    a :class:`JointPlan` with ``seeds`` (``lam`` then per node)."""
     n, D = system.Hdiag.shape[0], system.Hdiag.shape[-1]
     E = edges.num_edges
     rows = [damped_blocks(system, lam), system.Hoff,
             system.Hoff.transpose(-1, -2)]
     rhs = -system.g.reshape(-1)
     switches = isinstance(plan, JointPlan)
+    seeds = getattr(plan, "seeds", None)
+    if seeds is not None:
+        rhs = rhs.reshape(seeds, -1)
+        n //= seeds
     if switches:
-        _, Hss = damped_diag(system, lam)
+        Hss = damped_switches(system, lam, seeds)
         sel = plan.row_sel
         Sa = sel[:, :, None] * system.Hps_a[:, None, :]
         Sb = sel[:, :, None] * system.Hps_b[:, None, :]
         rows += [Hss[:, None, None] * (sel[:, :, None] * sel[:, None, :]),
                  Sa, Sa.transpose(-1, -2), Sb, Sb.transpose(-1, -2)]
-        rhs = torch.cat([rhs, -system.gs])
-        plan = plan.plan
-    elif isinstance(plan, DenseBatchPlan):
-        rhs = rhs.reshape(plan.seeds, -1)
-        n //= plan.seeds
+        rhs = torch.cat([rhs, -system.gs.reshape(rhs.shape[:-1] + (-1,))],
+                        dim=-1)
+    if seeds is not None or switches:
         plan = plan.plan
     H = scatter_add_rows(torch.cat(rows).reshape(-1, D * D), plan)
     dim = rhs.shape[-1]
@@ -243,19 +287,22 @@ def dense_solve(system: BlockSystem, edges: EdgeSet, lam: Tensor,
 # Switch elimination (method 2 on the pose-only solvers)
 # ---------------------------------------------------------------------------
 
-def eliminate_switches(system: BlockSystem, edges: EdgeSet, lam: Tensor):
+def eliminate_switches(system: BlockSystem, edges: EdgeSet, lam: Tensor,
+                       seeds: int | None = None):
     """Exactly eliminate the switch unknowns from the damped joint system.
 
     ``Hss`` is diagonal, so the Schur complement onto the poses is a
     closed-form per-edge correction of ``Hdiag[a]``, ``Hdiag[b]``,
     ``Hoff[e]`` and ``g[a]``, ``g[b]``, with the damped switch diagonal
-    (see the JAX package for why that damping is legitimate).  Returns
-    ``(reduced_system, backsub)``; ``backsub(xp)`` gives the switch
-    updates of the pose update ``xp`` through one ``gather_rows`` launch.
+    (see the JAX package for why that damping is legitimate;
+    :func:`damped_switches`: for B problems, ``seeds``, each problem's
+    own ``lam``).  Returns ``(reduced_system, backsub)``; ``backsub(xp)``
+    gives the switch updates of the pose update ``xp`` through one
+    ``gather_rows`` launch.
     """
     E, n, D = system.Hss.shape[0], system.Hdiag.shape[0], \
         system.Hdiag.shape[-1]
-    Hss_d = system.Hss + lam * torch.clamp(system.Hss, _DIAG_MIN, _DIAG_MAX)
+    Hss_d = damped_switches(system, lam, seeds)
     inv = 1.0 / Hss_d
     gs_inv = system.gs * inv
     Hps_a, Hps_b = system.Hps_a, system.Hps_b
@@ -341,22 +388,46 @@ class PCGPlan(NamedTuple):
     seeds: int | None = None
 
 
+class LaneDot:
+    """Each of ``seeds`` lanes' dot ``x . y`` as its dot alone, for
+    vectors shaped as ``like``: each lane's products are written to a row
+    of a buffer that starts on a 512-byte boundary, as a tensor of its own
+    does, and summed there in full, since on the card a reduction's vector
+    width, and with it the order of its terms, follows its input's
+    alignment (a lane's slice of 1533 switches is not aligned so), and a
+    row reduction of the ``(B, n)`` view sums in another order still.  The
+    buffers and the lanes' views of them are made once, so a dot launches
+    2B + 4 kernels (one problem's: 5)."""
+
+    def __init__(self, like: Update, seeds: int):
+        self.seeds, self.rows, self.lanes = seeds, [], []
+        for v in like:
+            n, step = v.numel() // seeds, 512 // v.element_size()
+            buf = v.new_empty((seeds, -(-n // step) * step))
+            shape = (v.shape[0] // seeds,) + tuple(v.shape[1:])
+            self.rows.append(buf[:, :n])
+            self.lanes.append([buf[k, :n].view(shape) for k in range(seeds)])
+
+    def __call__(self, x: Update, y: Update) -> Tensor:
+        sums = []
+        for a, b, rows, lanes in zip(x, y, self.rows, self.lanes):
+            torch.mul(a.reshape(rows.shape), b.reshape(rows.shape),
+                      out=rows)
+            sums += [torch.sum(v) for v in lanes]
+        sums = torch.stack(sums)
+        return sums[:self.seeds] + sums[self.seeds:]
+
+
 def _dot(x: Update, y: Update, seeds: int | None = None) -> Tensor:
     """``x . y``, or each problem's of B (``(B,)``): each problem's sums
-    are the full reductions of its own rows, as alone, so that its CG
-    scalars and stopping test are its solve's alone to the bit (a row
-    reduction of the ``(B, n)`` view sums in another order on the card,
-    and CG carries a last-bit difference into its count).  So a batch's
-    dot launches 2B + 4 kernels where one problem's launches 5."""
-    pp, ss = x.poses * y.poses, x.switches * y.switches
+    are the full reductions of its own products, as alone
+    (:class:`LaneDot`), so that its CG scalars and stopping test are its
+    solve's alone to the bit (CG carries a last-bit difference into its
+    count)."""
     if seeds is None:
-        return torch.sum(pp) + torch.sum(ss)
-    n, e = pp.shape[0] // seeds, ss.shape[0] // seeds
-    sums = torch.stack([torch.sum(pp[k * n:(k + 1) * n])
-                        for k in range(seeds)]
-                       + [torch.sum(ss[k * e:(k + 1) * e])
-                          for k in range(seeds)])
-    return sums[:seeds] + sums[seeds:]
+        return torch.sum(x.poses * y.poses) + torch.sum(x.switches
+                                                        * y.switches)
+    return LaneDot(x, seeds)(x, y)
 
 
 def pcg_solve(system: BlockSystem, edges: EdgeSet, lam: Tensor,
@@ -406,8 +477,11 @@ def pcg_solve(system: BlockSystem, edges: EdgeSet, lam: Tensor,
     else:
         raise ValueError(f"unknown preconditioner {preconditioner!r}")
 
+    lane_dot = None if seeds is None else LaneDot(
+        Update(system.g, system.gs), seeds)
+
     def dot(a: Update, b: Update) -> Tensor:
-        return _dot(a, b, seeds)
+        return _dot(a, b) if lane_dot is None else lane_dot(a, b)
 
     def step(v: Tensor, x: Update, y: Update) -> Update:
         """``x + v y``, each problem's ``v`` on its rows."""

@@ -9,7 +9,8 @@ The node sums of a call are one ``scatter_add_rows`` launch.
 
 ``seeds=B`` reads the edges as B seeds' problems, each a contiguous block
 of ``E / B`` edges (``solver/batch.py``), and returns each seed's cost,
-``(B,)``; the per-edge and per-node arithmetic is the same.
+``(B,)``; the per-edge and per-node arithmetic is the same (the plain
+chain's block products one problem at a time, :func:`_each`).
 """
 
 from __future__ import annotations
@@ -56,6 +57,19 @@ def _total(x: Tensor, seeds: int | None) -> Tensor:
 def _fixed_identity(free: FreeMask, D: int, scale: float) -> Tensor:
     eye = torch.eye(D, dtype=free.node.dtype, device=free.node.device)
     return scale * (1.0 - free.node)[:, None, None] * eye
+
+
+def _each(seeds: int | None, spec: str, *xs: Tensor) -> Tensor:
+    """``torch.einsum(spec, *xs)`` over the edges, or for ``seeds``
+    problems one call on each problem's edges, concatenated: on the card
+    the batched product's kernel depends on its batch count, so each
+    problem's products are then its own alone's to the bit."""
+    if seeds is None:
+        return torch.einsum(spec, *xs)
+    n = xs[0].shape[0] // seeds
+    return torch.cat([torch.einsum(spec, *(x[k * n:(k + 1) * n]
+                                           for x in xs))
+                      for k in range(seeds)])
 
 
 def linearize(
@@ -113,19 +127,19 @@ def linearize(
     cost = 0.5 * _total(edges.active * kernels.huber_rho(s2, huber_delta),
                         seeds)
     wj = w[:, None, None]
-    Haa = wj * torch.einsum("eki,ekj->eij", Ja, Ja)
-    Hbb = wj * torch.einsum("eki,ekj->eij", Jb, Jb)
-    Hoff = wj * torch.einsum("eki,ekj->eij", Ja, Jb)
-    ga = w[:, None] * torch.einsum("eki,ek->ei", Ja, e)
-    gb = w[:, None] * torch.einsum("eki,ek->ei", Jb, e)
+    Haa = wj * _each(seeds, "eki,ekj->eij", Ja, Ja)
+    Hbb = wj * _each(seeds, "eki,ekj->eij", Jb, Jb)
+    Hoff = wj * _each(seeds, "eki,ekj->eij", Ja, Jb)
+    ga = w[:, None] * _each(seeds, "eki,ek->ei", Ja, e)
+    gb = w[:, None] * _each(seeds, "eki,ek->ei", Jb, e)
     Hdiag, g = edges.node_sums((Haa, Hbb), (ga, gb))
     Hdiag = Hdiag + _fixed_identity(free, model.tangent_dim,
                                     fixed_identity_scale)
 
     if robust == "sc":
         live = edges.active * loop_f
-        Hps_a = w[:, None] * torch.einsum("eki,ek->ei", Ja, Js)
-        Hps_b = w[:, None] * torch.einsum("eki,ek->ei", Jb, Js)
+        Hps_a = w[:, None] * _each(seeds, "eki,ek->ei", Ja, Js)
+        Hps_b = w[:, None] * _each(seeds, "eki,ek->ei", Jb, Js)
         Hss_meas = w * torch.sum(Js * Js, dim=-1)
         gs_meas = w * torch.sum(Js * e, dim=-1)
         lam = sc_prior_lambda

@@ -7,8 +7,8 @@ Damping is Marquardt-scaled with the Nielsen update; ``lm_fixed_iters``
 also carries the opt-in stock-Ceres bookkeeping (``trust_region="ceres"``).
 
 On a seed batch's plan (the ``seeds`` of a ``SchurPartition``,
-``linear.DenseBatchPlan``, ``linear.PCGPlan`` or ``WoodburyOps``,
-``solver/batch.py``) both loops run B
+``linear.DenseBatchPlan``, ``linear.JointPlan``, ``linear.PCGPlan`` or
+``WoodburyOps``, ``solver/batch.py``) both loops run B
 problems as one flat problem of B*N nodes and B*E edges, as ``jax.vmap``
 runs the JAX loops: cost, lambda, nu and acceptance are ``(B,)``, each
 seed's repeated over its own rows, and every sum is each seed's; so are
@@ -72,9 +72,9 @@ def _gnc_phi(cfg: SolverConfig, it: int) -> float:
 def linear_plan(cfg: SolverConfig, edges: EdgeSet, partition=None):
     """What the configured linear solver needs besides the system: the
     Schur partition or the Woodbury operators; the dense assembly plan
-    (pose-only, or the joint one for ``robust="sc"``), built when not
-    given; for PCG its :class:`linear.PCGPlan` (one problem's when not
-    given)."""
+    (pose-only, or the joint one for ``robust="sc"``; a batch's too),
+    built when not given; for PCG its :class:`linear.PCGPlan` (one
+    problem's when not given)."""
     if cfg.linear_solver == "dense":
         joint = cfg.robust == "sc"
         if partition is None:
@@ -120,7 +120,8 @@ def _solve_linear(system, edges, lam, cfg: SolverConfig,
         # scale): the elimination's couplings do not reach the step
         # (ROADMAP C, reference-side fault 8).  woodbury_solve keeps the
         # chain edges' couplings and the reduced diagonal, as there.
-        system, backsub = linear.eliminate_switches(system, edges, lam)
+        system, backsub = linear.eliminate_switches(
+            system, edges, lam, getattr(plan, "seeds", None))
     if cfg.linear_solver == "woodbury":
         dx = woodbury.woodbury_solve(system, edges, plan, lam)
     else:

@@ -24,7 +24,12 @@ row (``tools/problems.intel50_seed_batch``: seeds 0-7, 50
 ``lm_fixed_iters`` of the batch): each seed's float32 cost, of the batch
 from the initial poses and the perturbed copies and of the seed run alone
 from the initial poses, against that seed's float64 batch cost (native;
-blocked-plain beside it).
+blocked-plain beside it).  With ``--robust sc`` it is the same seeds under
+joint switchable constraints on each configuration of
+``problems.SC_BATCH_CONFIGS`` (Schur native and with ``micro_chol_inv``,
+dense joint, Woodbury, and PCG at ``problems.SC_PCG`` for
+``problems.SC_PCG_ITERS`` iterations), each against the float64 batch of
+its own solver (the Schur ones against native).
 For each factorisation of the Schur solver -- native, blocked (panel 128)
 with the plain panel factor, blocked with ``micro_chol_inv`` -- or the one
 dense or PCG solve, it runs float32 from the initial poses and from
@@ -49,8 +54,9 @@ import numpy as np
 import torch
 
 from slam_tpu_torch.tools.problems import BATCH_ITERS, CONFIGS, PROBLEMS, \
-    ROBUST, SOLVERS, SPHERE_ITERS, intel50, intel50_plain, \
-    intel50_seed_batch, reference_key, sphere2500, sphere_reference_key
+    ROBUST, SC_BATCH_CONFIGS, SC_PCG_ITERS, SOLVERS, SPHERE_ITERS, intel50, \
+    intel50_plain, intel50_seed_batch, reference_key, sphere2500, \
+    sphere_reference_key
 
 REF = pathlib.Path(__file__).resolve().parents[1] / "data" / \
     "reference_costs.json"
@@ -86,8 +92,10 @@ def main(argv=None) -> int:
     if args.cli and (args.robust == "dcs" or args.linear_solver != "schur"):
         raise ValueError("--cli is the method-2 run on the Schur solver")
     if args.problem == "seed_batch":
-        if args.cli or args.robust != "dcs" or args.linear_solver != "schur":
-            raise ValueError("the seed batch is the plain-DCS Schur recipe")
+        if args.cli or args.robust not in ("dcs", "sc") \
+                or args.linear_solver != "schur":
+            raise ValueError("the seed batch is the plain-DCS Schur recipe "
+                             "or, with --robust sc, every joint-SC solver")
         return batch_spread(args)
     if args.problem == "sphere2500":
         if args.cli or args.robust != "dcs" or args.linear_solver != "schur":
@@ -176,44 +184,72 @@ def sphere_spread(args) -> int:
 
 
 def batch_spread(args) -> int:
-    """The seed batch's spread: each seed against its float64 batch
-    cost."""
+    """The seed batch's spread: each seed against its float64 batch cost
+    (plain DCS: the three Schur factorisations against native; joint SC:
+    each configuration against its own solver's)."""
     from slam_tpu_torch.solver.batch import lm_fixed_iters_batch
     from slam_tpu_torch.solver.lm import lm_fixed_iters
 
+    sc = args.robust == "sc"
+    configs = SC_BATCH_CONFIGS if sc else {
+        name: ("schur", kw) for name, kw in CONFIGS.items()}
     out = {"device": args.device, "problem": "seed_batch",
-           "iters": BATCH_ITERS, "lm": "lm_fixed_iters",
-           "perturb": args.perturb}
+           "robust": args.robust, "iters": BATCH_ITERS,
+           "lm": "lm_fixed_iters", "perturb": args.perturb}
+    if sc:
+        out["pcg_iters"] = SC_PCG_ITERS
     if args.device == "cuda":
         out["card"] = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
-    c64 = intel50_seed_batch(args.device, torch.float64)
-    b64 = c64.batch
+    cases = {}
+
+    def case(solver, dtype):
+        if (solver, dtype) not in cases:
+            cases[solver, dtype] = intel50_seed_batch(
+                args.device, dtype, solver, args.robust)
+        return cases[solver, dtype]
+
+    def batch_costs(c, cfg, poses=None):
+        b = c.batch
+        p0 = b.poses0 if poses is None else poses
+        iters = SC_PCG_ITERS if cfg.linear_solver == "pcg" else BATCH_ITERS
+        return lm_fixed_iters_batch(p0, *b.args[1:], cfg, iters,
+                                    partition=c.plan).cost.tolist()
+
+    def ref_of(name):
+        return "native" if configs[name][0] == "schur" else name
+
     f64 = {}
-    for name in ("native", "blocked_plain"):
-        f64[name] = lm_fixed_iters_batch(
-            *b64.args, c64.cfg.replace(**CONFIGS[name]), BATCH_ITERS,
-            partition=b64.partition).cost.tolist()
-    ref = f64["native"]
-    out["float64_native"] = ref
-    out["float64_blocked_plain_rel"] = [(c - r) / r for c, r in
-                                        zip(f64["blocked_plain"], ref)]
-    c32 = intel50_seed_batch(args.device, torch.float32)
-    b32 = c32.batch
-    base = b64.poses0.cpu().numpy()
+    refs = ["native"] + [n for n in configs if ref_of(n) == n
+                         and n != "native"]
+    for name in refs + ([] if sc else ["blocked_plain"]):
+        solver, kw = configs[name]
+        c = case(solver, torch.float64)
+        f64[name] = batch_costs(c, c.cfg.replace(**kw))
+        print(f"[spread] {name}_float64 costs={f64[name]} "
+              f"t={time.perf_counter() - t0:.1f}s", flush=True)
+    for name in refs:
+        out[f"float64_{name}"] = f64[name]
+    if not sc:
+        out["float64_blocked_plain_rel"] = [
+            (c - r) / r for c, r in zip(f64["blocked_plain"],
+                                        f64["native"])]
+    base = case("schur", torch.float64).batch.poses0.cpu().numpy()
     runs = [base] + [
         base * (1.0 + 1e-7 * np.random.default_rng(s).normal(
             size=base.shape)) for s in range(args.perturb)]
-    for name, kw in CONFIGS.items():
+    for name, (solver, kw) in configs.items():
+        c32 = case(solver, torch.float32)
         cfg = c32.cfg.replace(**kw)
+        ref = f64[ref_of(name)]
+        iters = SC_PCG_ITERS if solver == "pcg" else BATCH_ITERS
         rels = []
         for poses in runs:
             p0 = torch.as_tensor(poses, dtype=torch.float32,
                                  device=args.device)
-            cost = lm_fixed_iters_batch(p0, *b32.args[1:], cfg, BATCH_ITERS,
-                                        partition=b32.partition).cost
-            rels.append([(c - r) / r for c, r in zip(cost.tolist(), ref)])
-        alone = [(float(lm_fixed_iters(*a, cfg, BATCH_ITERS,
+            rels.append([(c - r) / r for c, r in
+                         zip(batch_costs(c32, cfg, p0), ref)])
+        alone = [(float(lm_fixed_iters(*a, cfg, iters,
                                        partition=p).cost) - r) / r
                  for (a, p), r in zip(c32.alone, ref)]
         out[f"{name}_float32"] = rels
@@ -222,7 +258,7 @@ def batch_spread(args) -> int:
               f"{[max(abs(r[i]) for r in rels) for i in range(len(ref))]} "
               f"alone={alone} t={time.perf_counter() - t0:.1f}s",
               flush=True)
-    for name in CONFIGS:
+    for name in configs:
         out[f"max_abs_rel_{name}_float32"] = max(
             abs(r) for rs in out[f"{name}_float32"] for r in rs)
     print(json.dumps(out))

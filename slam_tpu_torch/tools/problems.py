@@ -26,7 +26,9 @@ constraints (``"sc"``, method 2) or their variable projection
   PCG (``scripts/bench_pcg.py``'s settings: the tridiagonal
   preconditioner, rtol 1e-6, 100 CG iterations) or on the Woodbury
   solver (``scripts/bench_woodbury.py``: each seed's low-rank edges
-  padded to the seeds' largest count).
+  padded to the seeds' largest count); each under plain DCS or, for
+  method 2, joint switchable constraints (``robust="sc"``: the dense
+  solver's plan is then the joint one).
 
 - the chain batch, the DCS rescue's first consensus round on INTEL+50
   seed 42 (method 1, as the global solve sets it up): the plain solve,
@@ -210,6 +212,20 @@ BATCH_ITERS = 50
 #: PCG's settings in ``scripts/bench_pcg.py`` (its ``rtol``, ``maxit``).
 BENCH_PCG = dict(pcg_rtol=1e-6, pcg_max_iters=100,
                  pcg_preconditioner="tridiag")
+#: PCG's settings and LM iterations for the joint-SC seed batch: those of
+#: ``chip_smoke.py``'s method-2 PCG check (the CLI's defaults: rtol 1e-8,
+#: at most 250 CG iterations), 10 iterations (the CG loop is host-bound).
+SC_PCG = dict(pcg_rtol=1e-8, pcg_max_iters=250, pcg_preconditioner="tridiag")
+SC_PCG_ITERS = 10
+#: The joint-SC seed batch's configurations: (linear solver, the
+#: SolverConfig fields it sets).
+SC_BATCH_CONFIGS = {
+    "native": ("schur", CONFIGS["native"]),
+    "blocked_micro": ("schur", CONFIGS["blocked_micro"]),
+    "dense": ("dense", {}),
+    "woodbury": ("woodbury", {}),
+    "pcg": ("pcg", {}),
+}
 
 
 class BatchCase(NamedTuple):
@@ -217,30 +233,35 @@ class BatchCase(NamedTuple):
 
     graphs: list       # each seed's canonical-order PoseGraph
     batch: object      # solver.batch.SeedBatch
-    cfg: object        # SolverConfig: plain DCS on the batch's solver
+    cfg: object        # SolverConfig: its robust mode on the batch's solver
     alone: list        # per seed: (lm_fixed_iters args, its plan)
     plan: object       # the batch's plan (batch.partition on Schur)
 
 
-def intel50_seed_batch(device, dtype, linear_solver: str = "schur"
-                       ) -> BatchCase:
+def intel50_seed_batch(device, dtype, linear_solver: str = "schur",
+                       robust: str = "dcs") -> BatchCase:
     """``bench.py``'s batch: ``add_random_outliers(50, seed=s)`` of INTEL
     for each seed, stacked by ``solver.batch.seed_batch``; and each seed
     alone, with the same poses and free mask and its plan: on Schur its
     partition built with the batch's pad shapes (the shapes it has inside
-    the batch), on Woodbury its own low-rank edges.  ``linear_solver``
-    "pcg" and "woodbury" are ``scripts/bench_pcg.py``'s and
-    ``scripts/bench_woodbury.py``'s batches of the same seeds."""
+    the batch), on Woodbury its own low-rank edges, on the dense solver
+    its own dense plan.  ``linear_solver`` "pcg" and "woodbury" are
+    ``scripts/bench_pcg.py``'s and ``scripts/bench_woodbury.py``'s batches
+    of the same seeds.  ``robust``: "dcs" (plain DCS) or "sc" (joint
+    switchable constraints, method 2; on PCG :data:`SC_PCG`)."""
     import numpy as np
 
     from slam_tpu_torch.config import SolverConfig
     from slam_tpu_torch.io import g2o
     from slam_tpu_torch.solver.batch import batch_plan, seed_batch
+    from slam_tpu_torch.solver.linear import dense_plan
     from slam_tpu_torch.solver.problem import anchor_first_node, \
         edge_set_from_graph
     from slam_tpu_torch.solver.schur import build_partition
     from slam_tpu_torch.solver.woodbury import build_woodbury_ops
 
+    if robust not in ("dcs", "sc"):
+        raise ValueError(f"the seed batch runs dcs or sc, not {robust!r}")
     graph = g2o.load_g2o(g2o.find_dataset("INTEL"))
     graphs = [graph.add_random_outliers(50, seed=s).canonical_order()
               for s in BATCH_SEEDS]
@@ -254,6 +275,8 @@ def intel50_seed_batch(device, dtype, linear_solver: str = "schur"
         if linear_solver == "woodbury":
             return build_woodbury_ops(edges.ij.cpu().numpy(), g.num_nodes,
                                       device=device)
+        if linear_solver == "dense":
+            return dense_plan(edges, switches=robust == "sc")
         return None
 
     alone = []
@@ -264,11 +287,12 @@ def intel50_seed_batch(device, dtype, linear_solver: str = "schur"
                        anchor_first_node(g.num_nodes, dtype=dtype,
                                          device=device)),
                       own_plan(g, edges)))
-    cfg = SolverConfig(robust="dcs", linear_solver=linear_solver,
+    cfg = SolverConfig(robust=robust, linear_solver=linear_solver,
                        dtype=str(dtype).replace("torch.", ""),
-                       **(BENCH_PCG if linear_solver == "pcg" else {}))
+                       **(({"dcs": BENCH_PCG, "sc": SC_PCG}[robust])
+                          if linear_solver == "pcg" else {}))
     plan = (batch.partition if linear_solver == "schur" else
-            batch_plan(batch.edges, linear_solver, batch.seeds))
+            batch_plan(batch.edges, linear_solver, batch.seeds, robust))
     return BatchCase(graphs, batch, cfg, alone, plan)
 
 

@@ -358,17 +358,6 @@ def test_one_launch_per_kernel_call_of_one_seed(graphs, blocked):
         -(-b.partition.ni_max * 3 // 16) if blocked else 0)
 
 
-@pytest.mark.parametrize("kw", [dict(robust="sc"),
-                                dict(robust="sc", linear_solver="dense")])
-def test_what_the_batch_does_not_take_raises(graphs, kw):
-    b = tb.seed_batch([convert.graph_from_jax(g) for g in graphs[:2]],
-                      BLOCKS)
-    cfg = tb.SolverConfig(**{"robust": "dcs", "linear_solver": "schur",
-                             "dtype": "float64", **kw})
-    with pytest.raises(NotImplementedError, match="ROADMAP A19"):
-        tb.lm_fixed_iters_batch(*b.args, cfg, 1, partition=b.partition)
-
-
 def test_batch_checks_its_inputs(graphs):
     cfg = tb.SolverConfig(robust="dcs", linear_solver="schur",
                           dtype="float64")
@@ -379,10 +368,11 @@ def test_batch_checks_its_inputs(graphs):
     with pytest.raises(ValueError, match="do not match"):
         tb.lm_fixed_iters_batch(b.poses0[:2], b.switches0[:2], b.edges,
                                 b.free, cfg, 1, partition=b.partition)
-    with pytest.raises(NotImplementedError, match="ROADMAP A19d"):
-        linear.dense_plan(b.edges, switches=True, seeds=b.seeds)
-    with pytest.raises(ValueError, match="not 2 problems"):
-        linear.dense_plan(b.edges, seeds=2)
+    joint = linear.dense_plan(b.edges, switches=True, seeds=b.seeds)
+    assert isinstance(joint, linear.JointPlan) and joint.seeds == b.seeds
+    for switches in (False, True):
+        with pytest.raises(ValueError, match="not 2 problems"):
+            linear.dense_plan(b.edges, switches=switches, seeds=2)
 
 
 def port_alone_edges(graph, batch):

@@ -311,6 +311,6 @@ def test_plans_and_checks():
     cfg = tb.SolverConfig(linear_solver="pcg")
     assert linear_plan(cfg, None) == tlin.PCGPlan()
     assert linear_plan(cfg, None, tlin.PCGPlan(4)).seeds == 4
-    assert "pcg" not in tb.NOT_BATCHED and "woodbury" not in tb.NOT_BATCHED
+    assert tb.PLANS["pcg"] is tlin.PCGPlan and "woodbury" in tb.PLANS
     with pytest.raises(ValueError, match="no batch plan"):
         tb.batch_plan(None, "schur", 2)
