@@ -36,7 +36,8 @@ from typing import NamedTuple
 
 import torch
 
-from slam_tpu_torch.ops import _build
+from slam_tpu_torch.ops import _build, count_launch
+from slam_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -135,8 +136,13 @@ def micro_chol_inv(A: Tensor) -> tuple[Tensor, Tensor]:
     if A.dim() != 3 or A.shape[1] != A.shape[2]:
         raise ValueError(f"micro_chol_inv: need (M, p, p), got "
                          f"{tuple(A.shape)}")
-    if A.device.type == "cpu":
-        return micro_chol_inv_plain(A)
+    with span("kernel.micro_chol_inv"):
+        if A.device.type == "cpu":
+            return micro_chol_inv_plain(A)
+        return _micro_chol_inv_cuda(A)
+
+
+def _micro_chol_inv_cuda(A: Tensor) -> tuple[Tensor, Tensor]:
     if A.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"micro_chol_inv: float32/float64 only, got "
                         f"{A.dtype}")
@@ -156,11 +162,8 @@ def micro_chol_inv(A: Tensor) -> tuple[Tensor, Tensor]:
                     s.ctas, s.threads, int(s.split), s.inverse_ctas,
                     s.inverse_threads, _build.stream_ptr(dev)),
                  "micro_chol_inv")
-    micro_chol_inv.launches += 1
+    count_launch("micro_chol_inv")
     return L, inv
-
-
-micro_chol_inv.launches = 0
 
 
 def micro_chol_inv_folded(A: Tensor) -> tuple[Tensor, Tensor]:

@@ -28,7 +28,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from slam_tpu_torch.ops import _build
+from slam_tpu_torch.ops import _build, count_launch
+from slam_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -151,8 +152,13 @@ def gather_rows(x: Tensor, idx: Tensor) -> Tensor:
     Indices are checked when a plan or ``EdgeSet`` is built; the kernel
     trusts them.
     """
-    if x.is_cpu:
-        return gather_rows_plain(x, idx)
+    with span("kernel.gather_rows"):
+        if x.is_cpu:
+            return gather_rows_plain(x, idx)
+        return _gather_rows_cuda(x, idx)
+
+
+def _gather_rows_cuda(x: Tensor, idx: Tensor) -> Tensor:
     fn = _build.entry("slam_gather_rows", x.dtype)
     dev = x.get_device()
     if idx.dtype != torch.int32 or idx.dim() != 1 \
@@ -166,11 +172,8 @@ def gather_rows(x: Tensor, idx: Tensor) -> Tensor:
     if rows * cols:
         _build.check(fn(x.data_ptr(), idx.data_ptr(), out.data_ptr(), rows,
                         cols, _build.stream_ptr(dev)), "gather_rows")
-        gather_rows.launches += 1
+        count_launch("gather_rows")
     return out
-
-
-gather_rows.launches = 0
 
 
 def _check_rows(v: Tensor, plan: SegmentPlan) -> None:
@@ -212,9 +215,14 @@ def scatter_add_groups(groups) -> list[Tensor]:
                          f"a launch, got {len(groups)}")
     if not groups:
         return []
+    with span("kernel.scatter_add_rows"):
+        if groups[0][0].is_cpu:
+            return scatter_add_groups_plain(groups)
+        return _scatter_add_groups_cuda(groups)
+
+
+def _scatter_add_groups_cuda(groups: tuple) -> list[Tensor]:
     v0 = groups[0][0]
-    if v0.is_cpu:
-        return scatter_add_groups_plain(groups)
     dtype, dev = v0.dtype, v0.get_device()
     fn = _build.entry("slam_scatter_add_rows", dtype)
     desc, keep, outs = [], [], []
@@ -253,7 +261,7 @@ def scatter_add_groups(groups) -> list[Tensor]:
                         size * total if zero else 0,
                         _build.stream_ptr(dev)), "scatter_add_rows")
     if work:
-        scatter_add_rows.launches += 1
+        count_launch("scatter_add_rows")
     return res
 
 
@@ -261,6 +269,3 @@ def scatter_add_rows(v: Tensor, plan: SegmentPlan) -> Tensor:
     """``segment_sum(v[src], idx, n)`` for ``v (M, ...)``, each segment
     summed in plan order; ``(n, ...)``, or the block grid's matrix."""
     return scatter_add_groups(((v, plan),))[0]
-
-
-scatter_add_rows.launches = 0

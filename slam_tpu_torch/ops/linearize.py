@@ -6,8 +6,8 @@ rule, Huber weight, weighted H blocks and gradients) in one pass.  The
 CUDA kernel is ``csrc/linearize_se2.cu``; :func:`fused_linearize_se2_plain`
 is the same arithmetic in PyTorch.
 
-Two entries launch the one kernel (and count on
-``fused_linearize_se2.launches``):
+Two entries launch the one kernel (and count as
+``fused_linearize_se2`` in ``ops.launch_counts()``):
 
 - :func:`fused_linearize_se2` takes the gathered endpoints, the JAX
   kernel's signature (the tests and the comparison with ``slam_tpu``);
@@ -28,8 +28,9 @@ import math
 
 import torch
 
-from slam_tpu_torch.ops import _build
+from slam_tpu_torch.ops import _build, count_launch
 from slam_tpu_torch.ops.gather import gather_rows_plain
+from slam_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -147,7 +148,7 @@ def _launch(name: str, dtype, dev, args, robust, phi, delta, out, E):
     _build.check(fn(*args, float(phi), float(delta), int(robust == "dcs"),
                     out["e"].data_ptr(), E, _build.stream_ptr(dev.index)),
                  "fused_linearize_se2")
-    fused_linearize_se2.launches += 1
+    count_launch("fused_linearize_se2")
 
 
 def fused_linearize_se2(
@@ -157,9 +158,17 @@ def fused_linearize_se2(
     """Per-edge linearisation; inputs ``(E,3)``/``(E,)``, outputs ``e``,
     ``ga``, ``gb`` (E,3), ``Ja``/``Jb``/``Haa``/``Hbb``/``Hoff`` (E,3,3),
     ``w``, ``rho`` (E,) -- the dict layout of the JAX kernel."""
-    if pa.device.type == "cpu":
-        return fused_linearize_se2_plain(pa, pb, meas, free_a, free_b,
+    with span("kernel.fused_linearize_se2"):
+        if pa.device.type == "cpu":
+            return fused_linearize_se2_plain(pa, pb, meas, free_a, free_b,
+                                             loop_f, active, phi, delta,
+                                             robust)
+        return _fused_linearize_se2_cuda(pa, pb, meas, free_a, free_b,
                                          loop_f, active, phi, delta, robust)
+
+
+def _fused_linearize_se2_cuda(pa, pb, meas, free_a, free_b, loop_f, active,
+                              phi, delta, robust):
     _check_robust(robust)
     E = pa.shape[0]
     dtype, dev = pa.dtype, pa.device
@@ -171,9 +180,6 @@ def fused_linearize_se2(
         _launch("slam_linearize_se2", dtype, dev,
                 [t.data_ptr() for t in ins], robust, phi, delta, out, E)
     return out
-
-
-fused_linearize_se2.launches = 0
 
 
 def _check_input(what: str, t: Tensor, shape: tuple, dtype, dev) -> None:
@@ -205,10 +211,17 @@ def fused_linearize_se2_indexed(
     ``EdgeSet``) at ``poses (N, 3)`` with the free mask ``free_node (N,)``;
     the kernel reads the endpoints itself."""
     _check_robust(robust)
-    if poses.device.type == "cpu":
-        return fused_linearize_se2_indexed_plain(
-            poses, free_node, edges.ab, edges.meas, edges.loop_f,
-            edges.active, phi, delta, robust)
+    with span("kernel.fused_linearize_se2"):
+        if poses.device.type == "cpu":
+            return fused_linearize_se2_indexed_plain(
+                poses, free_node, edges.ab, edges.meas, edges.loop_f,
+                edges.active, phi, delta, robust)
+        return _fused_linearize_se2_indexed_cuda(poses, free_node, edges,
+                                                 phi, delta, robust)
+
+
+def _fused_linearize_se2_indexed_cuda(poses, free_node, edges, phi, delta,
+                                      robust):
     E, N = edges.num_edges, edges.num_nodes
     dtype, dev = poses.dtype, poses.device
     ins = {"poses": (poses.contiguous(), (N, 3), dtype),

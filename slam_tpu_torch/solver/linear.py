@@ -42,6 +42,7 @@ from slam_tpu_torch.ops.gather import SegmentPlan, scatter_add_rows, \
     segment_plan
 from slam_tpu_torch.solver.linearize import BlockSystem
 from slam_tpu_torch.solver.problem import EdgeSet
+from slam_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -232,22 +233,24 @@ def _finish_dense(H: Tensor, rhs: Tensor, n: int, D: int, E: int,
     """Solve ``H x = rhs``, or each system of a ``(B, D*n, D*n)`` stack
     (``n`` nodes a problem); a failed factor gives NaN in its own problem
     only."""
-    # Jacobi equilibration improves f32 conditioning markedly.
-    dscale = 1.0 / torch.sqrt(torch.clamp(
-        torch.diagonal(H, dim1=-2, dim2=-1), min=1e-12))
-    Hs = H * dscale[..., :, None] * dscale[..., None, :]
-    b = (rhs * dscale)[..., None]
-    if H.dim() == 2:
-        L, info = torch.linalg.cholesky_ex(Hs)
-        y = torch.cholesky_solve(b, L)
-    else:
-        L, info = cholesky_each(Hs)
-        y = cho_solve_stack(L, b)
-    sol = nan_unless_factored(y[..., 0] * dscale, info,
-                              H.shape[0] if H.dim() == 3 else None)
-    ds = sol[..., D * n:].reshape(-1) if switches else torch.zeros(
-        (E,), dtype=sol.dtype, device=sol.device)
-    return Update(poses=sol[..., :D * n].reshape(-1, D), switches=ds)
+    with span("dense.factor"):
+        # Jacobi equilibration improves f32 conditioning markedly.
+        dscale = 1.0 / torch.sqrt(torch.clamp(
+            torch.diagonal(H, dim1=-2, dim2=-1), min=1e-12))
+        Hs = H * dscale[..., :, None] * dscale[..., None, :]
+        if H.dim() == 2:
+            L, info = torch.linalg.cholesky_ex(Hs)
+        else:
+            L, info = cholesky_each(Hs)
+    with span("dense.substitute"):
+        b = (rhs * dscale)[..., None]
+        y = (torch.cholesky_solve(b, L) if H.dim() == 2 else
+             cho_solve_stack(L, b))
+        sol = nan_unless_factored(y[..., 0] * dscale, info,
+                                  H.shape[0] if H.dim() == 3 else None)
+        ds = sol[..., D * n:].reshape(-1) if switches else torch.zeros(
+            (E,), dtype=sol.dtype, device=sol.device)
+        return Update(poses=sol[..., :D * n].reshape(-1, D), switches=ds)
 
 
 def dense_solve(system: BlockSystem, edges: EdgeSet, lam: Tensor,
@@ -259,26 +262,28 @@ def dense_solve(system: BlockSystem, edges: EdgeSet, lam: Tensor,
     a :class:`JointPlan` with ``seeds`` (``lam`` then per node)."""
     n, D = system.Hdiag.shape[0], system.Hdiag.shape[-1]
     E = edges.num_edges
-    rows = [damped_blocks(system, lam), system.Hoff,
-            system.Hoff.transpose(-1, -2)]
-    rhs = -system.g.reshape(-1)
     switches = isinstance(plan, JointPlan)
     seeds = getattr(plan, "seeds", None)
-    if seeds is not None:
-        rhs = rhs.reshape(seeds, -1)
-        n //= seeds
-    if switches:
-        Hss = damped_switches(system, lam, seeds)
-        sel = plan.row_sel
-        Sa = sel[:, :, None] * system.Hps_a[:, None, :]
-        Sb = sel[:, :, None] * system.Hps_b[:, None, :]
-        rows += [Hss[:, None, None] * (sel[:, :, None] * sel[:, None, :]),
-                 Sa, Sa.transpose(-1, -2), Sb, Sb.transpose(-1, -2)]
-        rhs = torch.cat([rhs, -system.gs.reshape(rhs.shape[:-1] + (-1,))],
-                        dim=-1)
-    if seeds is not None or switches:
-        plan = plan.plan
-    H = scatter_add_rows(torch.cat(rows).reshape(-1, D * D), plan)
+    with span("dense.assemble"):
+        rows = [damped_blocks(system, lam), system.Hoff,
+                system.Hoff.transpose(-1, -2)]
+        rhs = -system.g.reshape(-1)
+        if seeds is not None:
+            rhs = rhs.reshape(seeds, -1)
+            n //= seeds
+        if switches:
+            Hss = damped_switches(system, lam, seeds)
+            sel = plan.row_sel
+            Sa = sel[:, :, None] * system.Hps_a[:, None, :]
+            Sb = sel[:, :, None] * system.Hps_b[:, None, :]
+            rows += [Hss[:, None, None] * (sel[:, :, None]
+                                           * sel[:, None, :]),
+                     Sa, Sa.transpose(-1, -2), Sb, Sb.transpose(-1, -2)]
+            rhs = torch.cat([rhs, -system.gs.reshape(rhs.shape[:-1]
+                                                     + (-1,))], dim=-1)
+        if seeds is not None or switches:
+            plan = plan.plan
+        H = scatter_add_rows(torch.cat(rows).reshape(-1, D * D), plan)
     dim = rhs.shape[-1]
     return _finish_dense(H[..., :dim, :dim], rhs, n, D, E, switches)
 
@@ -300,29 +305,31 @@ def eliminate_switches(system: BlockSystem, edges: EdgeSet, lam: Tensor,
     gives the switch updates of the pose update ``xp`` through one
     ``gather_rows`` launch.
     """
-    E, n, D = system.Hss.shape[0], system.Hdiag.shape[0], \
-        system.Hdiag.shape[-1]
-    Hss_d = damped_switches(system, lam, seeds)
-    inv = 1.0 / Hss_d
-    gs_inv = system.gs * inv
-    Hps_a, Hps_b = system.Hps_a, system.Hps_b
-    ca = -(Hps_a[:, :, None] * Hps_a[:, None, :]) * inv[:, None, None]
-    cb = -(Hps_b[:, :, None] * Hps_b[:, None, :]) * inv[:, None, None]
-    Sca, Scb, Sga, Sgb = edges.endpoint_sums(
-        (ca.reshape(E, D * D), cb.reshape(E, D * D)),
-        (Hps_a * gs_inv[:, None], Hps_b * gs_inv[:, None]))
-    reduced = system._replace(
-        Hdiag=system.Hdiag + Sca.reshape(n, D, D) + Scb.reshape(n, D, D),
-        Hoff=system.Hoff - (Hps_a[:, :, None] * Hps_b[:, None, :])
-        * inv[:, None, None],
-        g=system.g - Sga - Sgb,
-        Hps_a=torch.zeros_like(Hps_a), Hps_b=torch.zeros_like(Hps_b),
-        Hss=torch.ones_like(system.Hss), gs=torch.zeros_like(system.gs))
+    with span("sc.eliminate"):
+        E, n, D = system.Hss.shape[0], system.Hdiag.shape[0], \
+            system.Hdiag.shape[-1]
+        Hss_d = damped_switches(system, lam, seeds)
+        inv = 1.0 / Hss_d
+        gs_inv = system.gs * inv
+        Hps_a, Hps_b = system.Hps_a, system.Hps_b
+        ca = -(Hps_a[:, :, None] * Hps_a[:, None, :]) * inv[:, None, None]
+        cb = -(Hps_b[:, :, None] * Hps_b[:, None, :]) * inv[:, None, None]
+        Sca, Scb, Sga, Sgb = edges.endpoint_sums(
+            (ca.reshape(E, D * D), cb.reshape(E, D * D)),
+            (Hps_a * gs_inv[:, None], Hps_b * gs_inv[:, None]))
+        reduced = system._replace(
+            Hdiag=system.Hdiag + Sca.reshape(n, D, D) + Scb.reshape(n, D, D),
+            Hoff=system.Hoff - (Hps_a[:, :, None] * Hps_b[:, None, :])
+            * inv[:, None, None],
+            g=system.g - Sga - Sgb,
+            Hps_a=torch.zeros_like(Hps_a), Hps_b=torch.zeros_like(Hps_b),
+            Hss=torch.ones_like(system.Hss), gs=torch.zeros_like(system.gs))
 
     def backsub(xp: Tensor) -> Tensor:
-        xa, xb = edges.gather_ab(xp)
-        return -(system.gs + torch.sum(Hps_a * xa, dim=-1)
-                 + torch.sum(Hps_b * xb, dim=-1)) * inv
+        with span("sc.eliminate"):
+            xa, xb = edges.gather_ab(xp)
+            return -(system.gs + torch.sum(Hps_a * xa, dim=-1)
+                     + torch.sum(Hps_b * xb, dim=-1)) * inv
 
     return reduced, backsub
 

@@ -30,6 +30,7 @@ from slam_tpu_torch.solver import linear
 from slam_tpu_torch.solver.linearize import _total, cost_only, linearize
 from slam_tpu_torch.solver.models import model_for_dim
 from slam_tpu_torch.solver.problem import EdgeSet, FreeMask
+from slam_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -147,22 +148,25 @@ def _propose(s: LMState, edges, free, cfg, model, plan, kw, gnc,
     the model's predicted reduction and the solve's inner iterations
     (each seed's reduction and iterations in a batch of ``seeds``)."""
     kw_t = dict(kw, dcs_phi=_gnc_phi(cfg, s.it))
-    system = linearize(s.poses, s.switches, edges, free, **kw_t)
+    with span("lm.linearize"):
+        system = linearize(s.poses, s.switches, edges, free, **kw_t)
     # Under GNC the objective changes each iteration; compare at the
     # current phi (system.cost is the objective at s.poses and phi_t).
     prev_cost = system.cost if gnc else s.cost
     lam_x = linear.lane_rows(s.lam, s.poses, seeds)
-    dx, inner = _solve_linear(system, edges, lam_x, cfg, plan)
-    new_poses = model.retract(s.poses, dx.poses)
-    new_switches = s.switches + dx.switches
-    new_cost = cost_only(new_poses, new_switches, edges, **kw_t)
-    d = torch.diagonal(system.Hdiag, dim1=-2, dim2=-1)
-    damp = lam_x * torch.clamp(d, linear._DIAG_MIN, linear._DIAG_MAX)
-    ds = linear.lane_rows(s.lam, s.switches, seeds) * torch.clamp(
-        system.Hss, linear._DIAG_MIN, linear._DIAG_MAX)
-    model_red = 0.5 * (
-        _total(dx.poses * (damp * dx.poses - system.g), seeds)
-        + _total(dx.switches * (ds * dx.switches - system.gs), seeds))
+    with span("lm.linear_solve"):
+        dx, inner = _solve_linear(system, edges, lam_x, cfg, plan)
+    with span("lm.retract_cost"):
+        new_poses = model.retract(s.poses, dx.poses)
+        new_switches = s.switches + dx.switches
+        new_cost = cost_only(new_poses, new_switches, edges, **kw_t)
+        d = torch.diagonal(system.Hdiag, dim1=-2, dim2=-1)
+        damp = lam_x * torch.clamp(d, linear._DIAG_MIN, linear._DIAG_MAX)
+        ds = linear.lane_rows(s.lam, s.switches, seeds) * torch.clamp(
+            system.Hss, linear._DIAG_MIN, linear._DIAG_MAX)
+        model_red = 0.5 * (
+            _total(dx.poses * (damp * dx.poses - system.g), seeds)
+            + _total(dx.switches * (ds * dx.switches - system.gs), seeds))
     return new_poses, new_switches, new_cost, prev_cost, model_red, inner
 
 
@@ -206,6 +210,27 @@ def _cast(poses0, switches0, cfg):
     return poses0.to(dtype), switches0.to(dtype)
 
 
+def _step(s: LMState, accept: Tensor, new_poses: Tensor,
+          new_switches: Tensor, new_cost: Tensor, prev_cost: Tensor,
+          lam_acc: Tensor, lam_rej: Tensor, converged: Tensor, inner,
+          seeds: int | None) -> LMState:
+    """The state after an iteration from ``s``: the candidate where
+    ``accept`` holds (each seed's), and the damping it chose."""
+    return LMState(
+        poses=torch.where(linear.lane_rows(accept, new_poses, seeds),
+                          new_poses, s.poses),
+        switches=torch.where(linear.lane_rows(accept, new_switches, seeds),
+                             new_switches, s.switches),
+        cost=torch.where(accept, new_cost, prev_cost),
+        lam=torch.where(accept, lam_acc, lam_rej),
+        nu=torch.where(accept, torch.full_like(s.nu, 2.0), s.nu * 2.0),
+        it=s.it + 1,
+        accepted=s.accepted + accept.to(torch.int64),
+        converged=converged,
+        lin_iters=s.lin_iters + inner,
+    )
+
+
 def _take(run: Tensor, new: LMState, old: LMState, seeds: int) -> LMState:
     """``new`` in the seeds where ``run`` holds, ``old`` elsewhere (a
     vmapped ``while_loop``'s select); the counters are the loop's."""
@@ -229,6 +254,13 @@ def lm_solve(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
     the poses stacked) each seed stops at its own convergence, the loop
     ends when none is running, and ``iterations`` is ``(B,)``, each
     seed's."""
+    with span("lm.solve"):
+        return _lm_solve(poses0, switches0, edges, free, cfg, model,
+                         partition)
+
+
+def _lm_solve(poses0, switches0, edges, free, cfg, model,
+              partition) -> LMResult:
     require_type(cfg, SolverConfig, "cfg")
     model = model or model_for_dim(poses0.shape[-1])
     poses0, switches0 = _cast(poses0, switches0, cfg)
@@ -244,41 +276,35 @@ def lm_solve(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
         lane_it = torch.zeros((seeds,), dtype=torch.int64,
                               device=poses0.device)
     while s.it < cfg.max_iterations:
-        new_poses, new_switches, new_cost, prev_cost, model_red, inner = \
-            _propose(s, edges, free, cfg, model, plan, kw, gnc, seeds)
-        rho = (prev_cost - new_cost) / torch.clamp(model_red, min=1e-30)
-        accept = new_cost < prev_cost
-        factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
-        lam_acc = torch.clamp(s.lam * factor, cfg.min_lambda, cfg.max_lambda)
-        lam_rej = torch.clamp(s.lam * s.nu, cfg.min_lambda, cfg.max_lambda)
-        rel_decrease = (prev_cost - new_cost) / torch.clamp(prev_cost,
-                                                            min=1e-30)
-        converged = accept & (rel_decrease < cfg.function_tolerance)
-        if gnc:  # no convergence while phi is still annealing
-            converged = converged & (s.it >= cfg.gnc_anneal_iters)
-        step = LMState(
-            poses=torch.where(linear.lane_rows(accept, new_poses, seeds),
-                              new_poses, s.poses),
-            switches=torch.where(linear.lane_rows(accept, new_switches, seeds),
-                                 new_switches, s.switches),
-            cost=torch.where(accept, new_cost, prev_cost),
-            lam=torch.where(accept, lam_acc, lam_rej),
-            nu=torch.where(accept, torch.full_like(s.nu, 2.0), s.nu * 2.0),
-            it=s.it + 1,
-            accepted=s.accepted + accept.to(torch.int64),
-            converged=converged,
-            lin_iters=s.lin_iters + inner,
-        )
-        if seeds is None:
-            s = step
-            done = converged
-        else:
-            run = ~s.converged
-            s = _take(run, step, s, seeds)
-            lane_it = lane_it + run.to(torch.int64)
-            done = s.converged.all()
-        if bool(done.item()):
-            break
+        with span("lm.iteration"):
+            new_poses, new_switches, new_cost, prev_cost, model_red, inner \
+                = _propose(s, edges, free, cfg, model, plan, kw, gnc, seeds)
+            rho = (prev_cost - new_cost) / torch.clamp(model_red, min=1e-30)
+            accept = new_cost < prev_cost
+            factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3,
+                                 min=1.0 / 3.0)
+            lam_acc = torch.clamp(s.lam * factor, cfg.min_lambda,
+                                  cfg.max_lambda)
+            lam_rej = torch.clamp(s.lam * s.nu, cfg.min_lambda,
+                                  cfg.max_lambda)
+            rel_decrease = (prev_cost - new_cost) / torch.clamp(
+                prev_cost, min=1e-30)
+            converged = accept & (rel_decrease < cfg.function_tolerance)
+            if gnc:  # no convergence while phi is still annealing
+                converged = converged & (s.it >= cfg.gnc_anneal_iters)
+            step = _step(s, accept, new_poses, new_switches, new_cost,
+                         prev_cost, lam_acc, lam_rej, converged, inner,
+                         seeds)
+            if seeds is None:
+                s = step
+                done = converged
+            else:
+                run = ~s.converged
+                s = _take(run, step, s, seeds)
+                lane_it = lane_it + run.to(torch.int64)
+                done = s.converged.all()
+            if bool(done.item()):
+                break
     res = _result(s, cost0)
     return res if seeds is None else res._replace(iterations=lane_it)
 
@@ -293,6 +319,13 @@ def lm_fixed_iters(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
     ``model=None`` takes the model of the poses' width.  On a seed batch's
     partition the flat poses and switches are B seeds' (see the module
     docstring; ``batch.lm_fixed_iters_batch`` takes them stacked)."""
+    with span("lm.solve"):
+        return _lm_fixed_iters(poses0, switches0, edges, free, cfg,
+                               num_iters, model, partition, lam0, it0, nu0)
+
+
+def _lm_fixed_iters(poses0, switches0, edges, free, cfg, num_iters, model,
+                    partition, lam0, it0, nu0) -> LMResult:
     require_type(cfg, SolverConfig, "cfg")
     model = model or model_for_dim(poses0.shape[-1])
     poses0, switches0 = _cast(poses0, switches0, cfg)
@@ -304,31 +337,23 @@ def lm_fixed_iters(poses0: Tensor, switches0: Tensor, edges: EdgeSet,
     cost0 = cost_only(poses0, switches0, edges, **kw)
     s = _init_state(poses0, switches0, cost0, cfg, lam0, nu0, it0)
     for _ in range(num_iters):
-        new_poses, new_switches, new_cost, prev_cost, model_red, inner = \
-            _propose(s, edges, free, cfg, model, plan, kw, gnc, seeds)
-        lam_rej = torch.clamp(s.lam * s.nu, max=cfg.max_lambda)
-        if ceres:
-            # Stock-Ceres acceptance and accepted-radius update (see the
-            # JAX package for why only these two differ).
-            rho = (prev_cost - new_cost) / torch.clamp(model_red, min=1e-30)
-            accept = (model_red > 0.0) & (rho > 1e-3)
-            factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
-            lam_acc = torch.clamp(s.lam * factor, cfg.min_lambda,
-                                  cfg.max_lambda)
-        else:
-            accept = new_cost < prev_cost
-            lam_acc = torch.clamp(s.lam / 3.0, min=cfg.min_lambda)
-        s = LMState(
-            poses=torch.where(linear.lane_rows(accept, new_poses, seeds),
-                              new_poses, s.poses),
-            switches=torch.where(linear.lane_rows(accept, new_switches, seeds),
-                                 new_switches, s.switches),
-            cost=torch.where(accept, new_cost, prev_cost),
-            lam=torch.where(accept, lam_acc, lam_rej),
-            nu=torch.where(accept, torch.full_like(s.nu, 2.0), s.nu * 2.0),
-            it=s.it + 1,
-            accepted=s.accepted + accept.to(torch.int64),
-            converged=s.converged,
-            lin_iters=s.lin_iters + inner,
-        )
+        with span("lm.iteration"):
+            new_poses, new_switches, new_cost, prev_cost, model_red, inner \
+                = _propose(s, edges, free, cfg, model, plan, kw, gnc, seeds)
+            lam_rej = torch.clamp(s.lam * s.nu, max=cfg.max_lambda)
+            if ceres:
+                # Stock-Ceres acceptance and accepted-radius update (see
+                # the JAX package for why only these two differ).
+                rho = (prev_cost - new_cost) / torch.clamp(model_red,
+                                                           min=1e-30)
+                accept = (model_red > 0.0) & (rho > 1e-3)
+                factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3,
+                                     min=1.0 / 3.0)
+                lam_acc = torch.clamp(s.lam * factor, cfg.min_lambda,
+                                      cfg.max_lambda)
+            else:
+                accept = new_cost < prev_cost
+                lam_acc = torch.clamp(s.lam / 3.0, min=cfg.min_lambda)
+            s = _step(s, accept, new_poses, new_switches, new_cost,
+                      prev_cost, lam_acc, lam_rej, s.converged, inner, seeds)
     return _result(s, cost0)

@@ -51,6 +51,7 @@ from slam_tpu_torch.solver.linear import Update, _DIAG_MAX, _DIAG_MIN, \
     cho_solve_stack, cholesky_each, nan_unless_factored
 from slam_tpu_torch.solver.linearize import BlockSystem
 from slam_tpu_torch.solver.problem import EdgeSet
+from slam_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -691,7 +692,8 @@ def schur_solve(system: BlockSystem, edges: EdgeSet, part: SchurPartition,
     dtype, dev = system.Ja.dtype, system.Ja.device
     P, ni, ns, nsk = part.num_blocks, part.ni_max, part.ns, part.nsk_max
     sl, nst = part.sep_lead, part.slots.sep_ids.shape[0]
-    A, F, b, C, b_sep, s_int, s_sep = assemble(system, part, lam)
+    with span("schur.assemble"):
+        A, F, b, C, b_sep, s_int, s_sep = assemble(system, part, lam)
 
     # Half substitution: with A = L L^T and G = L^-1 [F | b],
     #   S = C - G_F^T G_F,  rhs_s = b_sep - G_F^T g_b,
@@ -699,67 +701,70 @@ def schur_solve(system: BlockSystem, edges: EdgeSet, part: SchurPartition,
     # Small interiors (D*ni <= _INV_MAX_DIM) form L^-1 explicitly.  The
     # blocked path's large interiors solve [F | b] by cho_solve instead:
     #   Y = A^-1 [F | b],  S = C - F^T Y_F,  x_int = y_b - Y_F x_sep.
-    Fb_ext = torch.cat([F, b[:, :, None]], dim=-1)
-    use_inv = ni * D <= _INV_MAX_DIM
-    if blocked:
-        fac = bc.blocked_cholesky(A, panel=panel, inner=panel_inner,
-                                  pallas_micro=pallas_micro)
-        if use_inv:
-            Linv = bc.solve_lower(fac, bc.eye_like(fac.L))[
-                ..., :ni * D, :ni * D]
-    else:
-        L, info = torch.linalg.cholesky_ex(A)
-        if use_inv:
-            Linv = torch.linalg.solve_triangular(L, bc.eye_like(L),
-                                                 upper=False)
-    if blocked and not use_inv:
-        Y_ext = bc.cho_solve_blocked(fac, Fb_ext)
-        Y_F, y_b = Y_ext[..., :-1], Y_ext[..., -1]
-        S_loc = F.transpose(-1, -2) @ Y_F                     # (P, D*nsk, .)
-        r_loc = F.transpose(-1, -2) @ y_b[:, :, None]
-    else:
-        G_ext = (Linv @ Fb_ext if use_inv else
-                 torch.linalg.solve_triangular(L, Fb_ext, upper=False))
-        G_F, g_b = G_ext[..., :-1], G_ext[..., -1]
-        S_loc = G_F.transpose(-1, -2) @ G_F                   # (P, D*nsk, .)
-        r_loc = G_F.transpose(-1, -2) @ g_b[:, :, None]
-    S_sum, r_sum = scatter_add_groups([
-        (_blocks(S_loc, (P,), nsk, nsk, D), part.plan_S),
-        (r_loc.reshape(P * nsk, D), part.plan_rs)])
-    S = C - S_sum
-    rhs_s = b_sep - r_sum.reshape(*sl, ns * D)
-    if blocked:
-        # One separator per problem (per seed, as under the JAX package's
-        # vmap): its panels never take the micro kernel.
-        sfac = bc.blocked_cholesky(S, panel=panel, inner=panel_inner)
-        x_sep = bc.cho_solve_blocked(sfac, rhs_s)
-    elif part.seeds is None:
-        Ls, info_s = torch.linalg.cholesky_ex(S)
-        x_sep = torch.cholesky_solve(rhs_s[..., None], Ls)[..., 0]
-    else:
-        # One separator per problem, each factored alone (PERF.md: the
-        # batched call is slower on an H100 at these sizes).
-        Ls, info_s = cholesky_each(S)
-        x_sep = cho_solve_stack(Ls, rhs_s[..., None])[..., 0]
+    with span("schur.interiors"):
+        Fb_ext = torch.cat([F, b[:, :, None]], dim=-1)
+        use_inv = ni * D <= _INV_MAX_DIM
+        if blocked:
+            fac = bc.blocked_cholesky(A, panel=panel, inner=panel_inner,
+                                      pallas_micro=pallas_micro)
+            if use_inv:
+                Linv = bc.solve_lower(fac, bc.eye_like(fac.L))[
+                    ..., :ni * D, :ni * D]
+        else:
+            L, info = torch.linalg.cholesky_ex(A)
+            if use_inv:
+                Linv = torch.linalg.solve_triangular(L, bc.eye_like(L),
+                                                     upper=False)
+        if blocked and not use_inv:
+            Y_ext = bc.cho_solve_blocked(fac, Fb_ext)
+            Y_F, y_b = Y_ext[..., :-1], Y_ext[..., -1]
+            S_loc = F.transpose(-1, -2) @ Y_F                 # (P, D*nsk, .)
+            r_loc = F.transpose(-1, -2) @ y_b[:, :, None]
+        else:
+            G_ext = (Linv @ Fb_ext if use_inv else
+                     torch.linalg.solve_triangular(L, Fb_ext, upper=False))
+            G_F, g_b = G_ext[..., :-1], G_ext[..., -1]
+            S_loc = G_F.transpose(-1, -2) @ G_F               # (P, D*nsk, .)
+            r_loc = G_F.transpose(-1, -2) @ g_b[:, :, None]
+    with span("schur.separator"):
+        S_sum, r_sum = scatter_add_groups([
+            (_blocks(S_loc, (P,), nsk, nsk, D), part.plan_S),
+            (r_loc.reshape(P * nsk, D), part.plan_rs)])
+        S = C - S_sum
+        rhs_s = b_sep - r_sum.reshape(*sl, ns * D)
+        if blocked:
+            # One separator per problem (per seed, as under the JAX package's
+            # vmap): its panels never take the micro kernel.
+            sfac = bc.blocked_cholesky(S, panel=panel, inner=panel_inner)
+            x_sep = bc.cho_solve_blocked(sfac, rhs_s)
+        elif part.seeds is None:
+            Ls, info_s = torch.linalg.cholesky_ex(S)
+            x_sep = torch.cholesky_solve(rhs_s[..., None], Ls)[..., 0]
+        else:
+            # One separator per problem, each factored alone (PERF.md: the
+            # batched call is slower on an H100 at these sizes).
+            Ls, info_s = cholesky_each(S)
+            x_sep = cho_solve_stack(Ls, rhs_s[..., None])[..., 0]
 
-    x_loc = (gather_rows(x_sep.reshape(nst, D), part.loc_gather)
-             .reshape(P, nsk, D) * part.loc_mask[:, :, None]
-             ).reshape(P, nsk * D, 1)
-    if blocked and not use_inv:
-        x_int = y_b - (Y_F @ x_loc)[..., 0]
-    else:
-        half = (g_b - (G_F @ x_loc)[..., 0])[:, :, None]
-        x_int = (Linv.transpose(-1, -2) @ half if use_inv else
-                 torch.linalg.solve_triangular(L.transpose(-1, -2), half,
-                                               upper=True))[..., 0]
-    # Leave the scaled space and scatter slots back to nodes.
-    x_int = x_int * s_int
-    x_sep = x_sep * s_sep
-    dp = scatter_add_rows(
-        torch.cat([x_sep.reshape(nst, D), x_int.reshape(P * ni, D)]),
-        part.plan_out)
-    if not blocked:  # the blocked factor carries its NaN itself
-        dp = nan_unless_factored(nan_unless_factored(dp, info, part.seeds),
-                                 info_s, part.seeds)
-    return Update(poses=dp,
-                  switches=torch.zeros((E,), dtype=dtype, device=dev))
+    with span("schur.back_substitute"):
+        x_loc = (gather_rows(x_sep.reshape(nst, D), part.loc_gather)
+                 .reshape(P, nsk, D) * part.loc_mask[:, :, None]
+                 ).reshape(P, nsk * D, 1)
+        if blocked and not use_inv:
+            x_int = y_b - (Y_F @ x_loc)[..., 0]
+        else:
+            half = (g_b - (G_F @ x_loc)[..., 0])[:, :, None]
+            x_int = (Linv.transpose(-1, -2) @ half if use_inv else
+                     torch.linalg.solve_triangular(L.transpose(-1, -2), half,
+                                                   upper=True))[..., 0]
+        # Leave the scaled space and scatter slots back to nodes.
+        x_int = x_int * s_int
+        x_sep = x_sep * s_sep
+        dp = scatter_add_rows(
+            torch.cat([x_sep.reshape(nst, D), x_int.reshape(P * ni, D)]),
+            part.plan_out)
+        if not blocked:  # the blocked factor carries its NaN itself
+            dp = nan_unless_factored(nan_unless_factored(dp, info, part.seeds),
+                                     info_s, part.seeds)
+        return Update(poses=dp,
+                      switches=torch.zeros((E,), dtype=dtype, device=dev))

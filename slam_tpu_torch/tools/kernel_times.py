@@ -107,9 +107,8 @@ def _wrappers() -> dict:
 def record(run) -> list[tuple[str, tuple, dict]]:
     """``(wrapper name, args, kwargs)`` of every outermost wrapper call
     that ``run()`` makes, in order.  Patches the wrappers in every loaded
-    module of the package for the run's duration; a wrapper that counts
-    its launches through its module's name counts on the stand-in, whose
-    count goes back to the wrapper afterwards."""
+    module of the package for the run's duration (the launch counts,
+    ``ops.launch_counts()``, go on as without it)."""
     by_id = {id(fn): (name, fn) for name, fn in _wrappers().items()}
     calls, depth = [], [0]
 
@@ -122,7 +121,6 @@ def record(run) -> list[tuple[str, tuple, dict]]:
                 return fn(*args, **kw)
             finally:
                 depth[0] -= 1
-        call.launches = 0
         return call
 
     patched = []
@@ -131,16 +129,13 @@ def record(run) -> list[tuple[str, tuple, dict]]:
             continue
         for attr, val in list(vars(mod).items()):
             if id(val) in by_id:
-                stand_in = recorder(*by_id[id(val)])
-                patched.append((mod, attr, val, stand_in))
-                setattr(mod, attr, stand_in)
+                patched.append((mod, attr, val))
+                setattr(mod, attr, recorder(*by_id[id(val)]))
     try:
         run()
     finally:
-        for mod, attr, val, stand_in in patched:
+        for mod, attr, val in patched:
             setattr(mod, attr, val)
-            if hasattr(val, "launches"):
-                val.launches += stand_in.launches
     return calls
 
 

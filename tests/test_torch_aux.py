@@ -1,8 +1,8 @@
-"""The port's profiling utilities and sweep harness against the JAX
-package's (float64, CPU): ``Timer``, ``trace``, ``iteration_rate``;
-``run_sweep`` (with and without the oracle columns), ``format_table``,
-``replay_outliers_to_g2o``; ``--sweep``, ``--sweep-seeds`` and
-``--profile`` through the command line."""
+"""The port's profiling trace and sweep harness against the JAX
+package's (float64, CPU): ``trace``; ``run_sweep`` (with and without the
+oracle columns), ``format_table``, ``replay_outliers_to_g2o``;
+``--sweep``, ``--sweep-seeds`` and ``--profile`` through the command
+line."""
 
 import dataclasses
 import glob
@@ -42,20 +42,6 @@ def circle_path(circle, tmp_path):
     return str(path)
 
 
-def test_profiling_timer():
-    t = profiling.Timer()
-    with t.section("parse"):
-        pass
-    x = torch.ones((8, 8), dtype=torch.float64)
-    with t.section("solve", sync=x):
-        x = x @ x
-    with t.section("solve", sync=(x, {"y": [x]})):
-        x = x @ x
-    assert set(t.sections) == {"parse", "solve"}
-    assert all(v >= 0 for v in t.sections.values())
-    assert "parse" in t.report() and t.report().startswith("[timing]")
-
-
 def test_trace_writes_a_trace(tmp_path):
     logdir = str(tmp_path / "trace")
     x = torch.ones((16, 16), dtype=torch.float64)
@@ -67,19 +53,6 @@ def test_trace_writes_a_trace(tmp_path):
     with open(files[0]) as f:
         events = json.load(f)["traceEvents"]
     assert any("aten::mm" in str(e.get("name")) for e in events)
-
-
-def test_iteration_rate():
-    calls = []
-
-    def fn(a):
-        calls.append(1)
-        return a * 2
-
-    rate, best = profiling.iteration_rate(fn, torch.ones(4), reps=3,
-                                          iters_per_call=5)
-    assert len(calls) == 4  # warm-up + reps
-    assert best > 0 and rate == pytest.approx(5 / best)
 
 
 def _sweep_kw(oracle=False, **solver):
@@ -175,13 +148,17 @@ def test_cli_sweep_seeds(circle_path, tmp_path, capsys):
 
 
 def test_cli_profile_writes_a_trace(circle_path, tmp_path):
-    """``--profile DIR`` wraps the solve in a trace and changes no
-    result."""
+    """``--profile DIR`` wraps the solve in a trace that shows the
+    program's stages, and changes no result."""
     argv = [circle_path, "5", "1", "--device", "cpu", "--max-iterations",
             "5"]
     assert cli.main(argv + ["--save-path", str(tmp_path / "a")]) == 0
     assert cli.main(argv + ["--save-path", str(tmp_path / "b"), "--profile",
                             str(tmp_path / "trace")]) == 0
-    assert glob.glob(str(tmp_path / "trace" / "*.pt.trace.json"))
+    files = glob.glob(str(tmp_path / "trace" / "*.pt.trace.json"))
+    assert len(files) == 1
+    with open(files[0]) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "slam/lm.iteration" in names
     assert (tmp_path / "a" / "opt_nodes.txt").read_bytes() == \
         (tmp_path / "b" / "opt_nodes.txt").read_bytes()

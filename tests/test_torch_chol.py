@@ -266,14 +266,14 @@ def test_max_panel_by_launch_shape():
         assert p == want
         assert p * (p + 2) * size <= tchol._SMEM_OPTIN \
             < (p + 1) * (p + 3) * size
-    before = tchol.micro_chol_inv.launches
+    before = ops.launch_counts()
     for shape, dtype in (((2, 241, 241), torch.float32),
                          ((2, 170, 170), torch.float64),
                          ((1, 241, 241), torch.float32)):
         with pytest.raises(ValueError):
             tchol.micro_chol_inv(torch.empty(shape, dtype=dtype,
                                              device="meta"))
-    assert tchol.micro_chol_inv.launches == before
+    assert ops.launch_counts() == before
 
 
 # The H100's SM count, on which the schedule's regimes are stated.
@@ -349,7 +349,7 @@ def test_cuda_path_launches_the_schedule_or_raises(monkeypatch):
     monkeypatch.setattr(tchol._build, "stream_ptr", lambda index: 0)
     monkeypatch.setattr(tchol, "sm_count", lambda index: SMS)
     monkeypatch.setattr(tchol, "micro_chol_inv_plain", plain)
-    before = tchol.micro_chol_inv.launches
+    before = ops.launch_counts()
     for shape, dtype in (((8, 16, 128, 128), torch.float32),
                          ((6, 16, 128, 128), torch.float64),
                          ((16, 128, 128), torch.float32)):
@@ -360,7 +360,7 @@ def test_cuda_path_launches_the_schedule_or_raises(monkeypatch):
         s = tchol.schedule(m, 128, dtype, SMS)
         assert calls[-1][3:-1] == (m, 128, s.ctas, s.threads, int(s.split),
                                    s.inverse_ctas, s.inverse_threads)
-    assert tchol.micro_chol_inv.launches == before
+    assert ops.launch_counts() == before
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])

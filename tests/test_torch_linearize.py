@@ -18,7 +18,7 @@ from slam_tpu.ops import pallas_linearize as jlin
 from slam_tpu.solver import linearize as jl
 from slam_tpu.solver import problem as jp
 from slam_tpu.solver.models import SE2Model as JaxSE2
-from slam_tpu_torch import convert
+from slam_tpu_torch import convert, ops
 from slam_tpu_torch.ops import linearize as olin
 from slam_tpu_torch.solver import linearize as tl
 from slam_tpu_torch.solver import problem as tp
@@ -249,7 +249,7 @@ def test_indexed_wrapper_checks_before_any_launch(intel_case):
     the kernel reads, on each call."""
     g, je, te, jf, tf, poses, sw = intel_case
     N = g.num_nodes
-    before = olin.fused_linearize_se2.launches
+    before = ops.launch_counts()
     good = _meta(te)
     poses_m = torch.empty((N, 3), dtype=torch.float64, device="meta")
     free_m = torch.empty((N,), dtype=torch.float64, device="meta")
@@ -287,7 +287,7 @@ def test_indexed_wrapper_checks_before_any_launch(intel_case):
         bad[k] = meta[k][:-1]
         with pytest.raises(ValueError):
             olin.fused_linearize_se2(*bad, 0.5, 0.01)
-    assert olin.fused_linearize_se2.launches == before
+    assert ops.launch_counts() == before
 
 
 def test_outputs_are_views_of_one_field_major_buffer():
