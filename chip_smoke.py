@@ -71,6 +71,15 @@ the script exits non-zero and prints no result line):
      ``micro_chol_inv_folded`` on the real first and trailing panels of
      its interiors with the switches eliminated, after
      ``SC_PANEL_ITERS`` iterations, folded over its 8 seeds;
+   - ``stack_cholesky`` (``[stack_chol]``) on the stacks of
+     ``STACK_CHOL_SHAPES`` (the dense cell's eight 5217^2 joint systems,
+     the Schur separators of M3500+50, of the M3500 seed batch and of
+     INTEL), scaled as the dense solver scales them, float32 and
+     float64: every lane factored, the launch count, zeros above the
+     diagonal, the residual max|L L^T - H| within RESID_FACTOR of the
+     cuSOLVER loop's, the first and last lanes equal to their matrices
+     alone to the bit; timed in phase 12 against its bound, its plain
+     version (with the scale) and the cuSOLVER loop (``library_ms``);
 3. the main path through the CLI, ``INTEL 50 1 --seed 42`` (auto init,
    auto solver = Schur, rescue on, float32): the output files, the launch
    count of every kernel during that run, and the ATE against the golden
@@ -495,7 +504,16 @@ DIST_SCHUR_F64_TOL = {"cost0": 1e-12, "cost": 1e-9, "poses": 1e-7}
 PROFILE_SYMBOLS = {"gather_rows": "gather_rows_kernel",
                    "scatter_add_rows": "scatter_add_rows_kernel",
                    "fused_linearize_se2": "linearize_se2_kernel",
-                   "micro_chol_inv": "micro_chol_inv_kernel"}
+                   "micro_chol_inv": "micro_chol_inv_kernel",
+                   "stack_cholesky": "stack_chol::"}
+# [stack_chol]: label -> (lanes, order) of the stacks the dense solver and
+# the seed batch's Schur separators factor: the dense cell's joint SC
+# systems (INTEL+50), and the separators of M3500+50, of the seed batch at
+# M3500 and of the managers' evals at INTEL.
+STACK_CHOL_SHAPES = {"dense_intel50_sc": (8, 5217),
+                     "separator_m3500_50": (8, 3950),
+                     "separator_m3500": (8, 1662),
+                     "separator_intel": (8, 723)}
 PANEL = 128               # schur_panel of the blocked path
 # Panels of 128 that micro_chol_inv_folded takes on the blocked path: the
 # rescue's chain batch (6 chains x 16 interiors) and the seed batch (8
@@ -626,6 +644,9 @@ KERNEL_INFO = {  # name: (source, TPU kernel it replaces, phase that runs it)
     "micro_chol_inv_folded": ("slam_tpu_torch/csrc/chol.cu",
                               "slam_tpu/ops/pallas_chol.py:119",
                               "seed_batch_blocked_micro"),
+    "stack_cholesky": ("slam_tpu_torch/csrc/stack_chol.cu",
+                       "none (the JAX package leaves the dense factor to "
+                       "cho_factor)", "method2_dense"),
 }
 # The fold is a reshape in front of micro_chol_inv, whose wrapper counts
 # the launch: a kernel's count, where it is not its name's.
@@ -636,7 +657,7 @@ PHASE_KERNELS = {
                      "fused_linearize_se2", "micro_chol_inv"),
     "method2_path": ("gather_rows", "scatter_add_rows"),
     "method2_varpro": ("gather_rows", "scatter_add_rows"),
-    "method2_dense": ("gather_rows", "scatter_add_rows"),
+    "method2_dense": ("gather_rows", "scatter_add_rows", "stack_cholesky"),
     "method2_ab": ("gather_rows", "scatter_add_rows", "micro_chol_inv"),
     "pcg_dcs": ("gather_rows", "scatter_add_rows", "fused_linearize_se2"),
     "pcg_sc": ("gather_rows", "scatter_add_rows"),
@@ -1314,6 +1335,123 @@ def phase_kernels(device, peaks, timings: list) -> dict:
                     time_chol, A, err, peaks,
                     summary if m == 128 and dtype == torch.float32
                     else None, lead=lead))
+    return summary
+
+
+def time_stack_chol(A, d, label: str, resid: float, peaks, summary):
+    """Times of ``stack_cholesky`` on one scaled stack against the plain
+    route (``cholesky_ex`` a lane, with the scaling products) and the
+    cuSOLVER loop on the scaled stack (what the dense solver ran before
+    the kernel); with ``summary``, the result line's.  Returns ``(rows,
+    fns, report)`` for :func:`phase_kernel_times`."""
+    from slam_tpu_torch.ops.stack_chol import schedule, stack_cholesky, \
+        stack_cholesky_plain
+    from slam_tpu_torch.tools import kernel_times as kt
+
+    B, n, _ = A.shape
+    Hs = A * d[:, :, None] * d[:, None, :]
+
+    def kernel():
+        return stack_cholesky(A, d)
+
+    t = in_turns({"kernel": kernel,
+                  "plain": lambda: stack_cholesky_plain(A, d),
+                  "library": lambda: stack_cholesky_plain(Hs)},
+                 {"kernel": 10, "plain": 5, "library": 5})
+    b_ms, b_by = kt.bound(peaks, A.dtype, *kt.cholesky_work(
+        n, B, A.element_size()))
+    shape = schedule(n, A.dtype)
+    row = dict(max_resid=resid, ms=t["kernel"],
+               host_us=kt.host_us(kernel, 10), plain_ms=t["plain"],
+               bound_ms=b_ms, bound_by=b_by, library_ms=t["library"])
+
+    def report():
+        log("kernels", kernel="stack_cholesky", shape=label,
+            batch=json.dumps([B, n, n]),
+            dtype=str(A.dtype).replace("torch.", ""),
+            schedule=json.dumps(shape._asdict()),
+            launches_per_call=shape.launches(n), max_resid=resid,
+            ms=round(row["ms"], 5), device_ms=round(row["device_ms"], 5),
+            device_kernels_per_call=row["device_events"],
+            host_us=round(row["host_us"], 2),
+            plain_ms=round(row["plain_ms"], 5),
+            library_ms=round(row["library_ms"], 5), bound_ms=round(b_ms, 6),
+            bound_by=b_by, roofline_pct=round(100 * b_ms / row["ms"], 3),
+            device_ms_by_kernel=json.dumps({
+                k.split("(")[0]: round(ms, 5)
+                for k, ms in row["device_kernels"].items()}))
+        if summary is not None:
+            summary["stack_cholesky"] = {
+                k: v for k, v in row.items()
+                if k not in ("device_events", "device_kernels")}
+
+    return [row], [kernel], report
+
+
+def phase_stack_chol(device, peaks, timings: list) -> dict:
+    """The stack factor (``csrc/stack_chol.cu``) at the dense solver's and
+    the Schur separators' stacks (:data:`STACK_CHOL_SHAPES`), float32 and
+    float64: every lane factored (info 0), the launch count, zeros above
+    the diagonal, the residual max|L L^T - (A_ij d_i) d_j| in float64
+    within RESID_FACTOR of the cuSOLVER loop's (or a few units of
+    roundoff), and the first and last lanes equal to their matrices
+    factored alone, to the bit.  The float32 timings go to ``timings``;
+    returns the dict they fill with the dense stack's numbers for the
+    result line."""
+    from slam_tpu_torch import ops
+    from slam_tpu_torch.ops.stack_chol import schedule, stack_cholesky, \
+        stack_cholesky_plain
+    from slam_tpu_torch.tools.stack_factor import jacobi, spd_stack
+
+    summary = {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).replace("torch.", "")
+        for label, (B, n) in STACK_CHOL_SHAPES.items():
+            A = spd_stack(B, n, dtype, seed=n, device=device)
+            d = jacobi(A)
+            ops.reset_launches()
+            L, info = stack_cholesky(A, d)
+            torch.cuda.synchronize()
+            got = ops.launch_counts()["stack_cholesky"]
+            shape = schedule(n, dtype)
+            Hs = A * d[:, :, None] * d[:, None, :]
+            Lp, info_p = stack_cholesky_plain(Hs)
+            if info.tolist() != [0] * B or info_p.tolist() != [0] * B:
+                raise AssertionError(f"stack_cholesky {label} {name}: info "
+                                     f"{info.tolist()}, loop "
+                                     f"{info_p.tolist()}")
+            if got != shape.launches(n) or not L.mT.is_contiguous():
+                raise AssertionError(f"stack_cholesky {label} {name}: "
+                                     f"{got} launches, contiguous "
+                                     f"{L.mT.is_contiguous()}")
+            if not bool((torch.triu(L, 1) == 0).all()):
+                raise AssertionError(f"stack_cholesky {label} {name}: "
+                                     "strict upper triangle not 0")
+            H64 = Hs.double()
+            rk = max((L[k].double() @ L[k].double().mT - H64[k]).abs()
+                     .max().item() for k in range(B))
+            rp = max((Lp[k].double() @ Lp[k].double().mT - H64[k]).abs()
+                     .max().item() for k in range(B))
+            del H64
+            alone = all(torch.equal(L[k], stack_cholesky(
+                A[k:k + 1], d[k:k + 1])[0][0]) for k in (0, B - 1))
+            floor = 4 * torch.finfo(dtype).eps
+            log("kernels", kernel="stack_cholesky", shape=label, dtype=name,
+                batch=json.dumps([B, n, n]),
+                schedule=json.dumps(shape._asdict()), launches=got,
+                resid_kernel=rk, resid_loop=rp, bitwise_alone=alone)
+            if not (np.isfinite(rk) and rk <= max(RESID_FACTOR * rp, floor)):
+                raise AssertionError(f"stack_cholesky {label} {name}: "
+                                     f"residual {rk} > {RESID_FACTOR} x the "
+                                     f"cuSOLVER loop's {rp}")
+            if not alone:
+                raise AssertionError(f"stack_cholesky {label} {name}: a "
+                                     "lane differs from its matrix alone")
+            if dtype == torch.float32:
+                timings.append(functools.partial(
+                    time_stack_chol, A, d, label, rk, peaks,
+                    summary if label == "dense_intel50_sc" else None))
+            del L, Lp, Hs
     return summary
 
 
@@ -3827,6 +3965,7 @@ def main() -> int:
     timings = []
     phases = [
         ("kernels", lambda: phase_kernels(device, peaks, timings)),
+        ("stack_chol", lambda: phase_stack_chol(device, peaks, timings)),
         ("main_path", phase_main_path),
         ("plain_dcs", lambda: phase_plain_dcs(device, smi)),
         ("scale", lambda: phase_scale(device, smi)),
@@ -3883,7 +4022,7 @@ def main() -> int:
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[path][KERNEL_COUNTER.get(k, k)],
-         **out["kernels"][k],
+         **{**out["kernels"], **out["stack_chol"]}[k],
          "launches_by_path": {p: c[KERNEL_COUNTER.get(k, k)]
                               for p, c in launches.items()}}
         for k, (src, tpu, path) in KERNEL_INFO.items()

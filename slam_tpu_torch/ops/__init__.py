@@ -10,23 +10,25 @@ from __future__ import annotations
 
 #: The counting wrappers' names.
 WRAPPERS = ("gather_rows", "scatter_add_rows", "fused_linearize_se2",
-            "micro_chol_inv")
+            "micro_chol_inv", "stack_cholesky")
 
 _launches = dict.fromkeys(WRAPPERS, 0)
 
 
-def count_launch(name: str) -> None:
-    """One launch of the wrapper ``name``."""
-    _launches[name] += 1
+def count_launch(name: str, kernels: int = 1) -> None:
+    """One launch of the wrapper ``name``, or ``kernels`` device kernels
+    that one call of it launched."""
+    _launches[name] += kernels
 
 
 def _wrappers():
     from slam_tpu_torch.ops.chol import micro_chol_inv
     from slam_tpu_torch.ops.gather import gather_rows, scatter_add_rows
     from slam_tpu_torch.ops.linearize import fused_linearize_se2
+    from slam_tpu_torch.ops.stack_chol import stack_cholesky
 
     return (gather_rows, scatter_add_rows, fused_linearize_se2,
-            micro_chol_inv)
+            micro_chol_inv, stack_cholesky)
 
 
 def reset_launches() -> None:

@@ -38,6 +38,8 @@ _SIGNATURES = {
     "slam_linearize_se2_indexed": [_P] * 6 + [_F64, _F64, _INT, _P, _I64,
                                               _P],
     "slam_micro_chol_inv": [_P, _P, _P, _I64, _I64] + [_INT] * 5 + [_P],
+    "slam_stack_cholesky": [_P, _I64, _I64, _P, _P, _P, _I64, _I64, _INT,
+                            _INT, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -12,12 +12,14 @@ method 2's joint system (``robust="sc"``) and solve to 0 otherwise.
   unknown per edge after the node-major pose unknowns.  On a batch of B
   problems (:class:`DenseBatchPlan`, ``solver/batch.py``) each problem's
   pose-only system is its own matrix of a ``(B, D*n, D*n)`` stack, all
-  assembled by one launch and factored one matrix at a time into one
-  stack (:func:`cholesky_each`: on the H100 B single calls took 0.24-0.76
-  of the batched call's time at 3135^2 and 3684^2, B = 2-10; PERF.md), so
-  each problem's factor is its own alone to the bit, as ``jax.vmap`` of
-  the JAX ``dense_solve`` factors each; so is each problem's joint
-  system under a :class:`JointPlan` with ``seeds``.
+  assembled by one launch; so is each problem's joint system under a
+  :class:`JointPlan` with ``seeds``.  The stack is equilibrated and
+  factored by ``ops.stack_chol.stack_cholesky``: on the card one
+  hand-written blocked Cholesky whose every launch serves all lanes (it
+  replaced a ``cholesky_ex`` call a lane, which left most of the H100
+  idle: PERF.md), on the CPU ``cholesky_ex`` a lane.  Either way each
+  problem's factor is its own alone to the bit, as ``jax.vmap`` of the
+  JAX ``dense_solve`` factors each; one problem is a stack of one.
 - ``eliminate_switches``: the exact elimination of the diagonal switch
   block, so that method 2 rides the pose-only Schur and Woodbury solvers
   (B problems' too, each problem's switches damped by its own lambda);
@@ -40,6 +42,7 @@ import torch
 
 from slam_tpu_torch.ops.gather import SegmentPlan, scatter_add_rows, \
     segment_plan
+from slam_tpu_torch.ops.stack_chol import stack_cholesky
 from slam_tpu_torch.solver.linearize import BlockSystem
 from slam_tpu_torch.solver.problem import EdgeSet
 from slam_tpu_torch.utils.profiling import span
@@ -207,18 +210,6 @@ def _joint_batch_plan(edges: EdgeSet, a: np.ndarray, b: np.ndarray,
                                   grid=((seeds,), w, w)), row_sel, seeds)
 
 
-def cholesky_each(Hs: Tensor) -> tuple[Tensor, Tensor]:
-    """``cholesky_ex`` of each matrix of a ``(B, n, n)`` stack, one call a
-    matrix, into one stack of factors (column-major, as the batched call
-    returns them) and ``(B,)`` infos: each factor is its matrix's factor
-    alone to the bit."""
-    L = torch.empty_like(Hs).mT
-    info = torch.empty(Hs.shape[0], dtype=torch.int32, device=Hs.device)
-    for k in range(Hs.shape[0]):
-        torch.linalg.cholesky_ex(Hs[k], out=(L[k], info[k]))
-    return L, info
-
-
 def cho_solve_stack(L: Tensor, b: Tensor) -> Tensor:
     """``A^-1 b`` for each factor ``L`` of a ``(B, n, n)`` stack and its
     ``(B, n, k)`` right-hand sides, by two batched triangular solves:
@@ -232,21 +223,18 @@ def _finish_dense(H: Tensor, rhs: Tensor, n: int, D: int, E: int,
                   switches: bool) -> Update:
     """Solve ``H x = rhs``, or each system of a ``(B, D*n, D*n)`` stack
     (``n`` nodes a problem); a failed factor gives NaN in its own problem
-    only."""
+    only.  One system is factored and solved as a stack of one."""
     with span("dense.factor"):
-        # Jacobi equilibration improves f32 conditioning markedly.
+        # Jacobi equilibration improves f32 conditioning markedly; the
+        # factor applies it as it stages the stack.
         dscale = 1.0 / torch.sqrt(torch.clamp(
             torch.diagonal(H, dim1=-2, dim2=-1), min=1e-12))
-        Hs = H * dscale[..., :, None] * dscale[..., None, :]
-        if H.dim() == 2:
-            L, info = torch.linalg.cholesky_ex(Hs)
-        else:
-            L, info = cholesky_each(Hs)
+        L, info = stack_cholesky(H.reshape((-1,) + H.shape[-2:]),
+                                 dscale.reshape(-1, H.shape[-1]))
     with span("dense.substitute"):
-        b = (rhs * dscale)[..., None]
-        y = (torch.cholesky_solve(b, L) if H.dim() == 2 else
-             cho_solve_stack(L, b))
-        sol = nan_unless_factored(y[..., 0] * dscale, info,
+        b = (rhs * dscale).reshape(L.shape[0], -1, 1)
+        y = cho_solve_stack(L, b).reshape(rhs.shape)
+        sol = nan_unless_factored(y * dscale, info,
                                   H.shape[0] if H.dim() == 3 else None)
         ds = sol[..., D * n:].reshape(-1) if switches else torch.zeros(
             (E,), dtype=sol.dtype, device=sol.device)

@@ -31,10 +31,12 @@ A partition built with ``seeds=B`` (``solver/batch.py``) holds B seeds'
 partitions of one padded shape, the counterpart of the JAX package's
 ``vmap`` over stacked partitions: its interiors are B*P blocks, and its
 separator is B systems of ``D*ns``, one per seed (never one system of
-``B*D*ns``), each factored and solved alone on the native path
-(``linear.cholesky_each``, ``linear.cho_solve_stack``: the batched
-cuSOLVER calls were the slower on the H100 at these sizes, PERF.md);
-every other launch of a solve serves every seed.
+``B*D*ns``), a stack that the native path factors with
+``ops.stack_chol.stack_cholesky`` (on the card one blocked Cholesky of
+every seed's separator in lockstep, each seed's factor its own alone to
+the bit; one problem's separator is a stack of one) and solves with
+``linear.cho_solve_stack``; every other launch of a solve serves every
+seed.
 """
 
 from __future__ import annotations
@@ -46,9 +48,10 @@ import torch
 
 from slam_tpu_torch.ops.gather import SegmentPlan, gather_rows, \
     scatter_add_groups, scatter_add_rows, segment_plan
+from slam_tpu_torch.ops.stack_chol import stack_cholesky
 from slam_tpu_torch.solver import blocked_chol as bc
 from slam_tpu_torch.solver.linear import Update, _DIAG_MAX, _DIAG_MIN, \
-    cho_solve_stack, cholesky_each, nan_unless_factored
+    cho_solve_stack, nan_unless_factored
 from slam_tpu_torch.solver.linearize import BlockSystem
 from slam_tpu_torch.solver.problem import EdgeSet
 from slam_tpu_torch.utils.profiling import span
@@ -737,14 +740,12 @@ def schur_solve(system: BlockSystem, edges: EdgeSet, part: SchurPartition,
             # vmap): its panels never take the micro kernel.
             sfac = bc.blocked_cholesky(S, panel=panel, inner=panel_inner)
             x_sep = bc.cho_solve_blocked(sfac, rhs_s)
-        elif part.seeds is None:
-            Ls, info_s = torch.linalg.cholesky_ex(S)
-            x_sep = torch.cholesky_solve(rhs_s[..., None], Ls)[..., 0]
         else:
-            # One separator per problem, each factored alone (PERF.md: the
-            # batched call is slower on an H100 at these sizes).
-            Ls, info_s = cholesky_each(S)
-            x_sep = cho_solve_stack(Ls, rhs_s[..., None])[..., 0]
+            # One separator per problem, each factored as if alone; one
+            # problem's is a stack of one.
+            Ls, info_s = stack_cholesky(S.reshape((-1,) + S.shape[-2:]))
+            x_sep = cho_solve_stack(
+                Ls, rhs_s.reshape(Ls.shape[0], -1, 1)).reshape(rhs_s.shape)
 
     with span("schur.back_substitute"):
         x_loc = (gather_rows(x_sep.reshape(nst, D), part.loc_gather)

@@ -297,6 +297,13 @@ def chol_work(A: Tensor, *_, **__) -> tuple[float, float, object]:
             float(m * 2 * p ** 3 / 3), library)
 
 
+def cholesky_work(n: int, count: int, itemsize: int) -> tuple[float, float]:
+    """(bytes, operations) of ``count`` Cholesky factors of order ``n``:
+    n^3 / 3 flops each, the matrix written once (the benchmark's
+    ``frozen/work.py::cholesky_work``)."""
+    return float(count * n * n * itemsize), float(count * n ** 3 / 3)
+
+
 # ---------------------------------------------------------------------------
 # One problem
 # ---------------------------------------------------------------------------

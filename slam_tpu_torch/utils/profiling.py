@@ -36,7 +36,8 @@ SPANS = tuple(PREFIX + name for name in (
     "schur.assemble", "schur.interiors", "schur.separator",
     "schur.back_substitute",
     "kernel.gather_rows", "kernel.scatter_add_rows",
-    "kernel.fused_linearize_se2", "kernel.micro_chol_inv"))
+    "kernel.fused_linearize_se2", "kernel.micro_chol_inv",
+    "kernel.stack_cholesky"))
 
 _on = False
 _OFF = contextlib.nullcontext()

@@ -353,13 +353,14 @@ def test_short_solves_count_lanes_and_calls(circle):
 def test_cholesky_each_is_each_matrix_alone():
     """Each factor equals its matrix's factor alone to the bit, and a lane
     that is not SPD reports its own info (and no other lane's)."""
-    from slam_tpu_torch.solver.linear import cho_solve_stack, cholesky_each
+    from slam_tpu_torch.ops.stack_chol import stack_cholesky
+    from slam_tpu_torch.solver.linear import cho_solve_stack
 
     rng = np.random.default_rng(0)
     X = torch.as_tensor(rng.normal(size=(4, 30, 30)))
     A = X @ X.mT + 30 * torch.eye(30, dtype=torch.float64)
     A[2, 5, 5] = -1.0
-    L, info = cholesky_each(A)
+    L, info = stack_cholesky(A)
     assert info.tolist() == [0, 0, 6, 0]
     for k in (0, 1, 3):
         assert torch.equal(L[k], torch.linalg.cholesky_ex(A[k])[0])

@@ -162,4 +162,4 @@ def test_cpu_tensors_take_plain_versions_and_count_nothing(edge_inputs):
     tchol.micro_chol_inv(torch.eye(4, dtype=torch.float64).expand(3, 4, 4))
     assert ops.launch_counts() == {"gather_rows": 0, "scatter_add_rows": 0,
                                    "fused_linearize_se2": 0,
-                                   "micro_chol_inv": 0}
+                                   "micro_chol_inv": 0, "stack_cholesky": 0}

@@ -30,14 +30,18 @@ SCHUR = {"schur.assemble", "schur.interiors", "schur.separator",
 CASES = {
     "dense-sc": (dict(robust="sc", linear_solver="dense"),
                  LM | DENSE | {"kernel.gather_rows",
-                               "kernel.scatter_add_rows"}),
+                               "kernel.scatter_add_rows",
+                               "kernel.stack_cholesky"}),
     "dense-pose": (dict(robust="dcs", linear_solver="dense"),
                    LM | DENSE | {"kernel.fused_linearize_se2",
                                  "kernel.gather_rows",
-                                 "kernel.scatter_add_rows"}),
+                                 "kernel.scatter_add_rows",
+                                 "kernel.stack_cholesky"}),
+    # the seed batch's separators are one stack
     "schur-native-sc": (dict(robust="sc", linear_solver="schur"),
                         LM | SCHUR | {"sc.eliminate", "kernel.gather_rows",
-                                      "kernel.scatter_add_rows"}),
+                                      "kernel.scatter_add_rows",
+                                      "kernel.stack_cholesky"}),
     # the kernel takes float32 panels only
     "schur-blocked-kernel": (dict(robust="dcs", linear_solver="schur",
                                   schur_blocked=True, schur_panel=16,
@@ -193,6 +197,6 @@ def test_launch_counts_hold_under_the_benchmarks_stand_ins(monkeypatch):
     assert schur.gather_rows is gather.gather_rows
     assert ops.launch_counts() == {"gather_rows": 2, "scatter_add_rows": 1,
                                    "fused_linearize_se2": 0,
-                                   "micro_chol_inv": 0}
+                                   "micro_chol_inv": 0, "stack_cholesky": 0}
     ops.reset_launches()
     assert set(ops.launch_counts().values()) == {0}

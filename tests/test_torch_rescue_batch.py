@@ -172,8 +172,9 @@ def test_a_lane_is_its_own_to_the_bit(chains, solver):
 
 def test_batched_dense_solve_matches_each_lane(chains):
     """One damped step of the four chains on the batched dense solver:
-    one scatter launch assembles all four matrices, and each lane's step
-    equals ``dense_solve`` of that chain alone."""
+    one scatter launch assembles all four matrices, one stack factor
+    factors them, and each lane's step equals ``dense_solve`` of that
+    chain alone."""
     cfg = solver_cfg("dense")
     C = len(chains["masks"])
     cb = tb.chain_batch(chains["poses0"], chains["switches0"],
@@ -187,7 +188,8 @@ def test_batched_dense_solve_matches_each_lane(chains):
     out = []
     calls = record(lambda: out.append(tl.dense_solve(
         system, edges, lam.repeat_interleave(64)[:, None], cb.partition)))
-    assert [name for name, _, _ in calls] == ["scatter_add_rows"]
+    assert [name for name, _, _ in calls] == ["scatter_add_rows",
+                                              "stack_cholesky"]
     assert calls[0][1][1].grid == ((C,), 64, 64)
     dx = out[0].poses.reshape(C, 64, 3)
     plan = tl.dense_plan(chains["edges"])
